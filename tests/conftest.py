@@ -46,3 +46,6 @@ def pytest_configure(config):
         "markers",
         "timeout(seconds): per-test timeout (enforced only when "
         "pytest-timeout is installed)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips without one")
