@@ -3,18 +3,26 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (``src/repro_torch``): co-scheduled,
-gradient-accumulated training of minicpm-2b and qwen2-vl-2b at full
-published width, with attention on the hand-written CUDA flash kernels.
-Phases, in order; each prints its own line and any failure exits
-non-zero:
+Drives the port's two paths (``src/repro_torch``) at full published
+width: co-scheduled, gradient-accumulated training of minicpm-2b and
+qwen2-vl-2b with attention on the hand-written CUDA flash kernels, and
+serving (prefill, KV-cache decode and the continuous-batching
+``DecodeEngine``) on the flash-attention forward and the two CUDA
+flash-decode kernels. Phases, in order; each prints its own line and any
+failure exits non-zero:
 
-1. build    - builds the kernels from ``src/repro_torch/kernels/csrc``.
+1. build    - builds the kernel libraries from
+              ``src/repro_torch/kernels/csrc``, one nvcc per source, all
+              started together.
 2. parity   - each kernel against its plain PyTorch version on the card,
-              at the main path's shapes plus a ragged-S f32 case, a
-              non-causal case and a window case; times kernel, plain
-              version and the PyTorch library call (SDPA, a yardstick
-              the port never calls).
+              at the main paths' shapes plus a ragged-S f32 case, a
+              non-causal case and a window case (attention), the
+              forward at a query offset (the suffix prefill; its rows
+              must equal the one-shot forward's bitwise), and a
+              length-0 slot, a ragged cache length and one kv head
+              (decode); times
+              kernel, plain version and the PyTorch library call (SDPA, a
+              yardstick the port never calls).
 3. solo     - minicpm-2b through ``ScheduleExecutor``: 3 steps at s = 4,
               a reconfig to s = 2, 2 steps, one ragged step (B = 5,
               b = 2, s = 3), finish; launch counts must equal
@@ -25,6 +33,17 @@ non-zero:
               category and the device's busy share of the step.
 6. accum    - on the card, accumulated == full-batch gradients on
               reduced configs in f32 (the reference's test tolerance).
+7. serve    - minicpm-2b ``generate``: batch 4, 1024-token prompts,
+              64 greedy tokens, ``engine="scan"`` and ``"eager"`` (equal
+              tokens); prefill and per-token times, launch counts.
+8. engine   - qwen2-vl-2b ``DecodeEngine``, 8 slots, 16 requests, run
+              dense, paged and prefix-shared: paged == dense,
+              prefix-shared == private and two requests == their solo
+              ``generate`` (required); whether cuBLAS rows depend on the
+              row count (reported); decode tokens/s (admission
+              excluded), pages, hit rate, launch counts. Then the same
+              three engines and solo generation on a reduced config in
+              f32, where every token identity is required.
 
 Then the card's name and power limit, the ``kernels`` JSON line, and as
 the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -46,11 +65,13 @@ SEQ = 2048
 BATCH = 4
 # Tolerances of kernel vs plain version, on the largest per-row relative
 # error: over the rows of each output (its last axis; each lse entry is a
-# row of one), ||kernel - plain|| / max(||plain||, median row norm). A
-# kernel that is wrong on any row shows at that row's own scale. The
-# median floor keeps a row whose exact value is 0 (dQ of query 0 under the
-# causal mask, where dS = P (dO.v0 - dO.O0) = 0) from dividing roundoff
-# by roundoff. f32: the two sum up to 2048 products in different orders;
+# row of one), ||kernel - plain|| / max(||plain||, median nonzero row
+# norm). A kernel that is wrong on any row shows at that row's own scale.
+# The floor keeps a row whose exact value is 0 (dQ of query 0 under the
+# causal mask, where dS = P (dO.v0 - dO.O0) = 0; a decode slot of length
+# 0) from dividing roundoff, or 0, by 0. It is the median of the nonzero
+# norms: with half the rows 0 (a batch-2 decode with one empty slot) the
+# median of all norms is 0, and 0 / 0 gives NaN. f32: the two sum up to 2048 products in different orders;
 # the card gives <= 2.5e-6, the limit is 4x that. bf16: both round their
 # f32 result to bf16, a relative step of 2**-8 per element; the card gives
 # <= 2.8e-3, the limit is two such steps.
@@ -62,8 +83,19 @@ REPLACES = {
     "flash_fwd": "src/repro/kernels/flash_attention.py:76",
     "flash_bwd_dq": "src/repro/kernels/flash_attention.py:191",
     "flash_bwd_dkdv": "src/repro/kernels/flash_attention.py:218",
+    "flash_decode": "src/repro/kernels/flash_decode.py:38",
+    "flash_decode_paged": "src/repro/kernels/flash_decode.py:132",
 }
-SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SOURCES = {
+    "flash_fwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_bwd_dq": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_bwd_dkdv": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
+    "flash_decode_paged": "src/repro_torch/kernels/csrc/flash_decode.cu",
+}
+# serving shapes
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, MAX_LEN = 4, 1024, 64, 4096
+ENGINE_SLOTS, ENGINE_SEGMENT, ENGINE_REQUESTS, SYSTEM_PREFIX = 8, 16, 16, 1024
 
 
 def log(phase: str, **fields) -> None:
@@ -97,15 +129,15 @@ def cuda_time(fn, iters: int, warmup: int = 1) -> float:
 # phase 1: build
 # ---------------------------------------------------------------------- #
 def phase_build():
-    from repro_torch.kernels.build import flash_attention_library
+    from repro_torch.kernels.build import build_all
     t0 = time.perf_counter()
-    lib = flash_attention_library()
-    ptxas = [ln.strip() for ln in lib.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("build", seconds=time.perf_counter() - t0,
-        nvcc_seconds=lib.build_seconds, library=os.path.relpath(lib.path,
-                                                                 ROOT),
-        ptxas=ptxas)
+    libs = build_all()
+    for name, lib in libs.items():
+        ptxas = [ln.strip() for ln in lib.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log("build", library=name, nvcc_seconds=lib.build_seconds,
+            path=os.path.relpath(lib.path, ROOT), ptxas=ptxas)
+    log("build", seconds=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------- #
@@ -152,8 +184,9 @@ def _row_err(got, want) -> float:
     cols = w.shape[-1] if w.dim() == 4 else 1
     g, w = g.reshape(-1, cols), w.reshape(-1, cols)
     norm = w.norm(dim=1)
+    floor = norm[norm > 0].median() if bool((norm > 0).any()) else 1.0
     return float(((g - w).norm(dim=1)
-                  / torch.maximum(norm, norm.median())).max())
+                  / torch.clamp_min(norm, floor)).max())
 
 
 def _abs_err(got, want) -> float:
@@ -260,7 +293,168 @@ def parity_case(label, shape, dtype, causal, window, timed):
     return abs_errs, timing
 
 
+def suffix_case(label, b, h, sk, start, d, dtype):
+    """The forward kernel in the suffix prefill's form (query rows at
+    absolute positions ``start .. sk - 1`` over all ``sk`` keys) against
+    its plain version, and bitwise equal to the same rows of the one-shot
+    forward over all ``sk`` rows: what gives a prefix-shared hit's
+    suffix prefill the attention bits of a whole-prompt prefill."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    q, k, v = (torch.randn((b, h, sk, d), generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    qs = q[:, :, start:].contiguous()
+    o, lse = fa.flash_attention_fwd(qs, k, v, causal=True, q_offset=start)
+    o_full, lse_full = fa.flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = ref.attention_ref(qs, k, v, causal=True,
+                                       q_offset=start)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    tol = TOL[dname]
+    errs = {"o": _row_err(o, o_ref), "lse": _row_err(lse, lse_ref)}
+    same = bool(torch.equal(o, o_full[:, :, start:])
+                and torch.equal(lse, lse_full[:, :, start:]))
+    row = {"case": label, "shape": [b, h, sk, d], "q_offset": start,
+           "dtype": dname, "tol": tol, "row_rel_err": errs,
+           "max_abs_err": _abs_err(o, o_ref),
+           "suffix_rows_equal_one_shot_rows": same}
+    log("parity", **row)
+    bad = {n: e for n, e in errs.items() if not e <= tol}
+    if bad or not same:
+        raise AssertionError(f"forward at a query offset disagrees in "
+                             f"{label}: {bad}, equals one-shot rows {same}")
+
+
+def _decode_inputs(gen, b, h, h_kv, s, d, dtype, lengths, page_size):
+    """q, a linear cache and the same rows in a shuffled page pool, with
+    -1 entries past each slot's length and spare pages of noise."""
+    import torch
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, s, h_kv, d), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    p_tab = -(-s // page_size)
+    n_pg = b * p_tab + 8
+    perm = torch.randperm(n_pg, generator=gen, device="cuda").tolist()
+    pools = [torch.randn((n_pg, page_size, h_kv, d), generator=gen,
+                         device="cuda").to(dtype) for _ in range(2)]
+    pages = torch.full((b, p_tab), -1, dtype=torch.int32)
+    for i, n in enumerate(lengths.tolist()):
+        for j in range(-(-min(n, s) // page_size)):
+            pg = perm[i * p_tab + j]
+            pages[i, j] = pg
+            lo, hi = j * page_size, min((j + 1) * page_size, s)
+            pools[0][pg, :hi - lo] = k[i, lo:hi]
+            pools[1][pg, :hi - lo] = v[i, lo:hi]
+    return q, k, v, pools, pages.cuda()
+
+
+def _decode_bound(lengths, s, h, h_kv, d, dtype_name, page_size=None
+                  ) -> dict:
+    """Least milliseconds on an H100: every valid K and V row read once
+    (each kv head once), q read and O written once, plus lengths and the
+    table entries walked; 4 D flops per (slot, head, valid key)."""
+    elt = 2 if dtype_name == "bfloat16" else 4
+    valid = [min(n, s) for n in lengths]
+    b = len(valid)
+    nbytes = (sum(valid) * h_kv * d * elt * 2 + 2 * b * h * d * elt + 4 * b)
+    if page_size:
+        nbytes += 4 * sum(-(-n // page_size) for n in valid)
+    flops = 4 * d * h * sum(valid)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bound_bytes": nbytes}
+
+
+def decode_case(label, b, h, h_kv, s, d, dtype, lengths, timed,
+                page_size=16):
+    """Both decode kernels against their plain versions on the same rows
+    (linear cache and shuffled pool), the same bits from both kernels,
+    and, if ``timed``, kernel / plain / SDPA times and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    lengths = torch.as_tensor(lengths, device="cuda")
+    q, k, v, (kp, vp), pages = _decode_inputs(gen, b, h, h_kv, s, d, dtype,
+                                              lengths, page_size)
+    g = h // h_kv
+    krep, vrep = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+    out = fd.flash_decode(q, k, v, lengths)
+    out_p = fd.flash_decode_paged(q, kp, vp, pages, lengths)
+    want = ref.flash_decode_ref(q, krep, vrep, lengths)
+    want_p = ref.flash_decode_paged_ref(q, kp, vp, pages, lengths)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    tol = TOL[dname]
+    errs = {"flash_decode": _row_err(out, want),
+            "flash_decode_paged": _row_err(out_p, want_p)}
+    abs_errs = {"flash_decode": _abs_err(out, want),
+                "flash_decode_paged": _abs_err(out_p, want_p)}
+    empty = [i for i, n in enumerate(lengths.tolist()) if n == 0]
+    row = {"case": label, "shape": [b, h, h_kv, s, d], "dtype": dname,
+           "page_size": page_size, "lengths": lengths.tolist(), "tol": tol,
+           "row_rel_err": errs, "max_abs_err": abs_errs,
+           "max_abs_plain": float(want.float().abs().max()),
+           "paged_equals_linear": bool(torch.equal(out, out_p)),
+           "empty_slots_zero": all(float(o[i].abs().max()) == 0.0
+                                   for o in (out, out_p) for i in empty)}
+    bad = {n: e for n, e in errs.items() if not e <= tol}
+    if bad or not row["paged_equals_linear"] or not row["empty_slots_zero"]:
+        log("parity", **row)
+        raise AssertionError(f"decode kernel disagrees in {label}: {bad}, "
+                             f"paged == linear {row['paged_equals_linear']}"
+                             f", empty slots 0 {row['empty_slots_zero']}")
+    if not timed:
+        log("parity", **row)
+        return None
+    # library yardstick: SDPA with a length mask on (B, H, S, D) kv
+    # repeated to H; for the paged row, on the gathered pages
+    valid = (torch.arange(s, device="cuda")[None, :]
+             < lengths[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = krep.transpose(1, 2).contiguous(), vrep.transpose(1, 2).contiguous()
+    p_tab = pages.shape[1]
+    safe = pages.long().clamp_min(0)
+    kg, vg = (pool[safe].reshape(b, p_tab * page_size, h_kv, d)
+              .repeat_interleave(g, 2).transpose(1, 2).contiguous()
+              for pool in (kp, vp))
+    valid_p = (torch.arange(p_tab * page_size, device="cuda")[None, :]
+               < lengths[:, None])[:, None, None, :]
+    fns = {
+        "flash_decode": (
+            lambda: fd.flash_decode(q, k, v, lengths),
+            lambda: ref.flash_decode_ref(q, k.repeat_interleave(g, 2),
+                                         v.repeat_interleave(g, 2), lengths),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=valid)),
+        "flash_decode_paged": (
+            lambda: fd.flash_decode_paged(q, kp, vp, pages, lengths),
+            lambda: ref.flash_decode_paged_ref(q, kp, vp, pages, lengths),
+            lambda: F.scaled_dot_product_attention(qt, kg, vg,
+                                                   attn_mask=valid_p)),
+    }
+    timing = {}
+    for name, (kern, plain, lib) in fns.items():
+        timing[name] = {"ms": cuda_time(kern, iters=20),
+                        "plain_ms": cuda_time(plain, iters=5),
+                        "library_ms": cuda_time(lib, iters=20),
+                        **_decode_bound(lengths.tolist(), s, h, h_kv, d,
+                                        dname, page_size if "paged" in name
+                                        else None)}
+    row["timing"] = timing
+    log("parity", **row)
+    return abs_errs, timing
+
+
 def phase_parity():
+    import numpy as np
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     main = parity_case("minicpm-2b", (1, 36, SEQ, 64), bf16, True, 0, True)
@@ -268,26 +462,62 @@ def phase_parity():
     parity_case("ragged-f32", (1, 4, 1000, 128), f32, True, 0, False)
     parity_case("noncausal-f32", (2, 2, 320, 64), f32, False, 0, False)
     parity_case("window", (1, 4, 1000, 64), bf16, True, 200, False)
-    return main
+    # the suffix prefill of a prefix-shared hit: the engine phase's
+    # 1024-token system prefix, and a ragged f32 case
+    suffix_case("qwen2-vl-2b suffix prefill", 1, 12, 2048, SYSTEM_PREFIX,
+                128, bf16)
+    suffix_case("ragged suffix f32", 2, 4, 1000, 333, 64, f32)
+    # decode: ragged lengths from a seed, including 1 and the full cache
+    rng = np.random.default_rng(0)
+    lens = [1, MAX_LEN] + rng.integers(1, MAX_LEN + 1, 6).tolist()
+    dec = decode_case("minicpm-2b decode", 8, 36, 36, MAX_LEN, 64, bf16,
+                      lens, True)
+    lens = rng.permutation([1, MAX_LEN] + rng.integers(
+        1, MAX_LEN + 1, 6).tolist()).tolist()
+    dec_p = decode_case("qwen2-vl-2b paged decode", 8, 12, 2, MAX_LEN, 128,
+                        bf16, lens, True)
+    decode_case("length-0 slot", 4, 4, 2, 512, 128, f32, [0, 512, 77, 300],
+                False)
+    decode_case("ragged cache", 4, 8, 2, 1237, 64, f32, [1237, 1000, 613, 1],
+                False, page_size=32)
+    # one kv head, bf16, half the rows empty (the case whose per-row
+    # error read NaN before the metric's floor skipped zero rows)
+    decode_case("one kv head bf16", 2, 6, 1, 77, 64, bf16, [0, 77], False)
+    errs, timing = main
+    errs = dict(errs, flash_decode=dec[0]["flash_decode"],
+                flash_decode_paged=dec_p[0]["flash_decode_paged"])
+    timing = dict(timing, flash_decode=dec[1]["flash_decode"],
+                  flash_decode_paged=dec_p[1]["flash_decode_paged"])
+    return errs, timing
 
 
 # ---------------------------------------------------------------------- #
 # phase 3: solo run through the executor
 # ---------------------------------------------------------------------- #
+def _reset_all():
+    from repro_torch.kernels import flash_attention, flash_decode
+    flash_attention.reset_launches()
+    flash_decode.reset_launches()
+
+
+def _launches() -> dict:
+    from repro_torch.kernels import flash_attention, flash_decode
+    return {**flash_attention.LAUNCHES, **flash_decode.LAUNCHES}
+
+
+def _expect_launches(phase: str, expected: dict) -> dict:
+    got = _launches()
+    want = {k: expected.get(k, 0) for k in got}
+    if got != want:
+        raise AssertionError(f"{phase}: launches {got} != expected {want}")
+    return got
+
+
 def _expect(n_layers: int, micro: int) -> dict:
     # remat recomputes the forward in the backward: two forward launches
     return {"flash_fwd": 2 * n_layers * micro,
             "flash_bwd_dq": n_layers * micro,
             "flash_bwd_dkdv": n_layers * micro}
-
-
-def _check_launches(phase: str, expected: dict) -> dict:
-    from repro_torch.kernels.flash_attention import LAUNCHES
-    got = dict(LAUNCHES)
-    if got != expected or min(got.values()) == 0:
-        raise AssertionError(f"{phase}: launches {got} != expected "
-                             f"{expected}")
-    return got
 
 
 def _check_loss(phase: str, loss: float) -> None:
@@ -299,7 +529,6 @@ def phase_solo():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import make_batch
-    from repro_torch.kernels.flash_attention import reset_launches
     from repro_torch.launch.cluster import JobSpec, ScheduleExecutor
     cfg = get_config("minicpm-2b")
     ex = ScheduleExecutor()
@@ -308,7 +537,7 @@ def phase_solo():
     ex.start("minicpm", sub_batch=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    _reset_all()
     micro = 0
     schedule = [(None, 3), (2, 2)]          # (reconfig sub-batch, steps)
     for sub, n in schedule:
@@ -343,7 +572,7 @@ def phase_solo():
     ex.finish("minicpm-ragged")
     if micro != 3 * 4 + 2 * 2 + 3:
         raise AssertionError(f"solo: {micro} micro-batches, expected 19")
-    launches = _check_launches("solo", _expect(cfg.n_layers, micro))
+    launches = _expect_launches("solo", _expect(cfg.n_layers, micro))
     log("solo", summary=True, micro_batches=micro, launches=launches,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
     del ex
@@ -358,18 +587,17 @@ def phase_pair(iters: int = 2):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.coschedule import measure_pair
-    from repro_torch.kernels.flash_attention import reset_launches
     from repro_torch.launch.cluster import JobSpec
     cfg_a, cfg_b = get_config("minicpm-2b"), get_config("qwen2-vl-2b")
     s = 4                                    # sub-batch 1 at B = 4
     spec_a = JobSpec(cfg_a, batch=BATCH, accum_steps=s, seq=SEQ, seed=0)
     spec_b = JobSpec(cfg_b, batch=BATCH, accum_steps=s, seq=SEQ, seed=1)
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    _reset_all()
     r = measure_pair(spec_a, spec_b, iters=iters)
     # solo a, solo b, then the pair: each (iters + 1) steps incl. warm-up
     layer_micro = (iters + 1) * 2 * (cfg_a.n_layers * s + cfg_b.n_layers * s)
-    launches = _check_launches("pair", {
+    launches = _expect_launches("pair", {
         "flash_fwd": 2 * layer_micro, "flash_bwd_dq": layer_micro,
         "flash_bwd_dkdv": layer_micro})
     for key in ("t_a_solo", "t_b_solo", "t_pair"):
@@ -473,6 +701,315 @@ def phase_accum():
                 rtol=5e-4, atol=5e-6)
 
 
+# ---------------------------------------------------------------------- #
+# phase 7: serving through generate
+# ---------------------------------------------------------------------- #
+def phase_serve():
+    """minicpm-2b at full width, bf16: batch 4, 1024-token prompts, 64
+    greedy tokens through ``generate``, device loop and eager loop."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+    cfg = get_config("minicpm-2b")
+    params = init_params(cfg, 0)
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)))
+    kw = dict(max_new_tokens=SERVE_NEW, max_len=MAX_LEN)
+    serve.generate(cfg, params, prompt[:, :64], max_new_tokens=2,
+                   max_len=128)                       # warm-up
+    # prefill alone, for its time
+    cache = init_cache(cfg, SERVE_BATCH, MAX_LEN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve.prefill_one_shot(cfg, params, prompt.cuda(), cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    del cache
+    torch.cuda.empty_cache()
+    expect = {"flash_fwd": cfg.n_layers,
+              "flash_decode": cfg.n_layers * SERVE_NEW}
+    toks, launches = {}, {}
+    for engine in ("scan", "eager"):
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks[engine] = serve.generate(cfg, params, prompt, engine=engine,
+                                      **kw)
+        wall = time.perf_counter() - t0
+        launches[engine] = _expect_launches(f"serve {engine}", expect)
+        decode_s = wall - prefill_ms / 1e3
+        log("serve", model=cfg.name, engine=engine, batch=SERVE_BATCH,
+            prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, wall_s=wall,
+            prefill_ms=prefill_ms,
+            ms_per_decode_step=decode_s * 1e3 / SERVE_NEW,
+            decode_tokens_per_s=SERVE_BATCH * SERVE_NEW / decode_s,
+            launches=launches[engine],
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if not torch.equal(toks["scan"], toks["eager"]):
+        raise AssertionError("serve: scan and eager tokens differ")
+    if tuple(toks["scan"].shape) != (SERVE_BATCH, SERVE_NEW) or int(
+            toks["scan"].min()) < 0 or int(toks["scan"].max()) >= cfg.vocab:
+        raise AssertionError(f"serve: bad tokens {toks['scan']}")
+    log("serve", summary=True, tokens_equal=True,
+        first_tokens=toks["scan"][0, :8].tolist())
+    _profile_decode(cfg, params, prompt)
+    del params
+    torch.cuda.empty_cache()
+    return launches["scan"]
+
+
+def _profile_decode(cfg, params, prompt, steps: int = 8):
+    """Device time of ``steps`` decode steps after a prefill, by kernel
+    category, and the device's busy share of their wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache
+    _, cache = serve.prefill_one_shot(cfg, params, prompt.cuda(),
+                                      init_cache(cfg, SERVE_BATCH, MAX_LEN))
+    run = serve._make_scan_generate(cfg, steps, True)
+    tok = prompt[:, -1:].cuda()
+    run(params, cache, tok)                        # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(params, cache, tok)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_cat, n_kernels = {}, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n_kernels += e.count
+        low = e.key.lower()
+        cat = ("decode (port kernel)" if "flash_decode_kernel" in e.key
+               else "matmul (cuBLAS)" if any(
+                   w in low for w in ("gemm", "gemv", "xmma", "cutlass",
+                                      "nvjet"))
+               else "other (elementwise, reductions, copies)")
+        by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total / 1e3
+    device_ms = sum(by_cat.values())
+    log("serve", profile=True, decode_steps=steps, wall_ms=wall_ms,
+        device_ms=device_ms if device_ms else "not measured",
+        busy_share=device_ms / wall_ms if device_ms else "not measured",
+        kernels_per_step=n_kernels / steps, by_category_ms=by_cat)
+    del cache
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------- #
+# phase 8: the continuous-batching engine
+# ---------------------------------------------------------------------- #
+def _engine_requests(cfg):
+    """16 prompts: a shared 1024-token system prefix plus 256-1024 tokens
+    of their own; 32-128 new tokens each. All from one seed."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, cfg.vocab, SYSTEM_PREFIX)
+    return [(np.concatenate([system, rng.integers(
+        0, cfg.vocab, int(rng.integers(256, 1025)))]),
+        int(rng.integers(32, 129))) for _ in range(ENGINE_REQUESTS)]
+
+
+def _agreement(a, b) -> dict:
+    """How many requests have identical tokens; for the others, the first
+    position where they part."""
+    split = {i: next(j for j, (x, y) in enumerate(zip(p, q)) if x != y)
+             for i, (p, q) in enumerate(zip(a, b)) if p != q}
+    return {"identical": len(a) - len(split), "of": len(a),
+            "first_divergence": split}
+
+
+def _run_engine(cfg, params, reqs, expect_launches, **kw):
+    """Every request through one ``DecodeEngine``; returns (tokens per
+    request, stats, launches, wall seconds). Launch counts are checked
+    against ``expect_launches(stats)``."""
+    import torch
+    from repro_torch.launch.engine import DecodeEngine
+    eng = DecodeEngine(cfg, params, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, n) for p, n in reqs]
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = dict(eng.stats)
+    launches = _expect_launches(f"engine {kw}", expect_launches(st))
+    toks = [out[r] for r in rids]
+    if [len(o) for o in toks] != [n for _, n in reqs]:
+        raise AssertionError(f"engine {kw}: token counts differ")
+    return toks, st, launches, wall
+
+
+def _engine_launches(cfg, segment, n_reqs, paged):
+    # every admission prefills once through the flash forward (one-shot
+    # for a miss, at a query offset for a prefix hit); every slot-step
+    # of every segment decodes once per layer
+    decode = "flash_decode_paged" if paged else "flash_decode"
+    return lambda st: {decode: cfg.n_layers * st["segments"] * segment,
+                       "flash_fwd": cfg.n_layers * n_reqs}
+
+
+def _cublas_rows(cfg, params, ms) -> dict:
+    """Whether a cuBLAS product's rows depend on how many rows the call
+    has: the last m rows of x @ W (x of 2048 rows) against x[-m:] @ W,
+    bitwise, for each first-layer weight and each m in ``ms``; returns
+    the m where they differ. Outside the attention kernels this is the
+    only arithmetic a suffix prefill does differently from a
+    whole-prompt prefill (every other op is row by row)."""
+    import torch
+    from repro_torch.models.layers import linear
+    from repro_torch.tree import unit_slice
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    unit = unit_slice(params["units"], 0)
+    x = {}
+    out = {}
+    for block, ps in unit.items():
+        if not isinstance(ps, dict):
+            continue
+        for name, p in ps.items():
+            if not isinstance(p, dict) or p["w"].dim() != 2:
+                continue
+            d_in = p["w"].shape[0]
+            if d_in not in x:
+                x[d_in] = torch.randn((1, 2048, d_in), generator=gen,
+                                      device="cuda").to(p["w"].dtype)
+            full = linear(p, x[d_in])
+            out[f"{block}.{name}"] = [
+                m for m in ms
+                if not torch.equal(linear(p, x[d_in][:, -m:]),
+                                   full[:, -m:])]
+    return out
+
+
+def _engine_small():
+    """Dense, paged and prefix-shared engines and solo ``generate`` on a
+    reduced qwen2-vl-2b in f32, on the card: every token identity the
+    CPU tests pin must hold here too. A 40-token shared prefix is 2.5
+    pages of 16, so hits map two shared pages and fork the boundary
+    page copy-on-write; ``debug=True`` audits the paging invariants
+    every segment."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b").reduced(),
+                              dtype="float32")
+    params = init_params(cfg, 2)
+    rng = np.random.default_rng(2)
+    system = rng.integers(0, cfg.vocab, 40)
+    reqs = [(np.concatenate([system, rng.integers(
+        0, cfg.vocab, int(rng.integers(3, 30)))]), int(rng.integers(8, 25)))
+        for _ in range(8)]
+    kw = dict(n_slots=4, max_len=128, segment=8)
+    outs, stats = {}, {}
+    for way, extra in (("dense", {}),
+                       ("paged", {"paged": True, "page_size": 16}),
+                       ("prefix_shared", {"paged": True, "page_size": 16,
+                                          "prefix_share": True,
+                                          "debug": True})):
+        outs[way], stats[way], _, _ = _run_engine(
+            cfg, params, reqs, _engine_launches(cfg, 8, len(reqs),
+                                                extra.get("paged")),
+            **kw, **extra)
+    solo = [serve.generate(cfg, params, torch.as_tensor(p)[None, :],
+                           max_new_tokens=n, max_len=128)[0].tolist()
+            for p, n in reqs]
+    st = stats["prefix_shared"]
+    row = {"config": "qwen2-vl-2b reduced, float32",
+           "requests": len(reqs), "prefix_hits": st["prefix_hits"],
+           "cow_forks": st["cow_forks"],
+           "paged_vs_dense": _agreement(outs["paged"], outs["dense"]),
+           "prefix_shared_vs_private": _agreement(outs["prefix_shared"],
+                                                  outs["paged"]),
+           "engine_vs_solo": _agreement(outs["dense"], solo)}
+    log("engine", small=True, **row)
+    if not (outs["paged"] == outs["dense"] == outs["prefix_shared"]
+            == solo) or st["prefix_hits"] == 0 or st["cow_forks"] == 0:
+        raise AssertionError(f"engine (reduced, f32): identities fail "
+                             f"{row}")
+
+
+def phase_engine():
+    """qwen2-vl-2b at full width, bf16: 16 requests through an 8-slot
+    ``DecodeEngine`` run dense, paged and prefix-shared; then the same
+    three and solo generation on a reduced config in f32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    cfg = get_config("qwen2-vl-2b")
+    params = init_params(cfg, 1)
+    reqs = _engine_requests(cfg)
+    ways = {"dense": {}, "paged": {"paged": True, "page_size": 16},
+            "prefix_shared": {"paged": True, "page_size": 16,
+                              "prefix_share": True}}
+    outs, launches = {}, {}
+    for way, kw in ways.items():
+        outs[way], st, launches[way], wall = _run_engine(
+            cfg, params, reqs,
+            _engine_launches(cfg, ENGINE_SEGMENT, len(reqs),
+                             kw.get("paged")),
+            n_slots=ENGINE_SLOTS, max_len=MAX_LEN, segment=ENGINE_SEGMENT,
+            **kw)
+        useful = sum(len(o) for o in outs[way])
+        log("engine", model=cfg.name, way=way, wall_s=wall,
+            segments=st["segments"], decode_s=st["decode_seconds"],
+            decode_tokens_per_s=useful / st["decode_seconds"],
+            slot_steps_per_s=(ENGINE_SLOTS * ENGINE_SEGMENT * st["segments"]
+                              / st["decode_seconds"]),
+            peak_active_slots=st["peak_active_slots"],
+            peak_pages=st.get("peak_pages_in_use"),
+            prefix_hits=st.get("prefix_hits"),
+            prefix_hit_rate=st.get("prefix_hit_rate"),
+            prefill_tokens_saved=st.get("prefill_tokens_saved"),
+            cow_forks=st.get("cow_forks"), launches=launches[way],
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.empty_cache()
+    # paged == dense is bitwise by construction: the same kernels' sums
+    # in the same order at the same batch shapes. Engine == solo: a decode
+    # row's products do not depend on the other slots' rows.
+    # Prefix-shared == private: a hit's suffix prefill gives the one-shot
+    # prefill's attention rows bitwise (parity phase), every other op is
+    # row by row, and the cuBLAS products give the same rows at each
+    # suffix's row count; the probe reports the row counts where they
+    # would not (2 and 256 as markers, then this run's suffix lengths).
+    suffixes = sorted({len(p) - SYSTEM_PREFIX for p, _ in reqs})
+    solo = []
+    for i in (0, ENGINE_REQUESTS - 1):
+        p, n = reqs[i]
+        toks = serve.generate(cfg, params, torch.as_tensor(p)[None, :],
+                              max_new_tokens=n, max_len=MAX_LEN)
+        solo.append(toks[0].tolist())
+    summary = {
+        "paged_vs_dense": _agreement(outs["paged"], outs["dense"]),
+        "engine_vs_solo": _agreement(
+            [outs["dense"][0], outs["dense"][-1]], solo),
+        "prefix_shared_vs_private": _agreement(outs["prefix_shared"],
+                                               outs["paged"]),
+        "cublas_rows_differ_at_m": _cublas_rows(cfg, params,
+                                                [2, 256] + suffixes)}
+    log("engine", summary=True, **summary)
+    for key in ("paged_vs_dense", "engine_vs_solo",
+                "prefix_shared_vs_private"):
+        if summary[key]["identical"] != summary[key]["of"]:
+            raise AssertionError(f"engine: {key} {summary[key]}")
+    del params
+    torch.cuda.empty_cache()
+    _engine_small()
+    return launches["paged"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -487,16 +1024,18 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     errs, timing = phase_parity()
-    solo = phase_solo()
+    launches = dict(phase_solo())
     phase_pair()
     phase_profile()
     phase_accum()
+    launches["flash_decode"] = phase_serve()["flash_decode"]
+    launches["flash_decode_paged"] = phase_engine()["flash_decode_paged"]
     kernels = []
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+    for name in REPLACES:
         t = timing[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": solo[name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -15,8 +15,10 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
-from typing import Dict, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -25,11 +27,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# argtypes of each C entry point (pointers and the stream as c_void_p)
-SIGNATURES = {
-    "repro_flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
-    "repro_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _P],
-    "repro_flash_bwd_dkdv": [_P] * 8 + [_I] * 6 + [_F, _P],
+# each library: its sources under csrc/ and the argtypes of its C entry
+# points (pointers and the stream as c_void_p)
+LIBRARIES = {
+    "flash_attention": (["flash_attention.cu"], {
+        "repro_flash_fwd": [_P] * 5 + [_I] * 8 + [_F, _P],
+        "repro_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _P],
+        "repro_flash_bwd_dkdv": [_P] * 8 + [_I] * 6 + [_F, _P],
+    }),
+    "flash_decode": (["flash_decode.cu"], {
+        "repro_flash_decode": [_P] * 5 + [_I] * 6 + [_F, _P],
+        "repro_flash_decode_paged": [_P] * 6 + [_I] * 7 + [_F, _P],
+    }),
 }
 
 
@@ -91,14 +100,35 @@ class Library:
             f.restype = ctypes.c_int
 
 
-_FLASH: Optional[Library] = None
+_LOADED: Dict[str, Library] = {}
+_LOCK = threading.Lock()
 
 
-def flash_attention_library() -> Library:
-    """The flash-attention library, built on first call."""
-    global _FLASH
-    if _FLASH is None:
-        _FLASH = Library("flash_attention",
-                         [os.path.join(CSRC, "flash_attention.cu")],
-                         SIGNATURES)
-    return _FLASH
+def library(name: str) -> Library:
+    """The library ``name`` of ``LIBRARIES``, built on first call."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        sources, signatures = LIBRARIES[name]
+        lib = Library(name, [os.path.join(CSRC, s) for s in sources],
+                      signatures)
+        with _LOCK:
+            lib = _LOADED.setdefault(name, lib)
+    return lib
+
+
+def build_all() -> Dict[str, Library]:
+    """Build every library at once: one ``nvcc`` per source, all started
+    together (``subprocess`` releases the GIL while each compiles)."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        return dict(zip(LIBRARIES, pool.map(library, LIBRARIES)))
+
+
+def launch(name: str, entry: str, *args) -> None:
+    """Call C entry ``entry`` of library ``name`` on the current stream;
+    raise if the launch failed."""
+    import torch
+    fn = getattr(library(name).lib, entry)
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed to launch: CUDA error {rc}")
+

@@ -33,6 +33,15 @@
 // the input type and lse in f32 (0 for a row with no visible key). The
 // ragged S edge is masked in the kernel instead of padded.
 //
+// The forward also serves the suffix prefill of a prefix-shared serving
+// cache: sq query rows at absolute positions q_offset .. q_offset + sq - 1
+// over sk >= q_offset + sq key rows. A row's result does not depend on
+// which q tile holds it: kv tiles start at key 0 whatever q_offset is,
+// every tile with a key the row sees is visited in the same order, and a
+// visited tile the mask hides from the row adds exactly 0 to it (p = 0,
+// correction 1). So the suffix rows carry the bits of the same rows of a
+// one-shot forward over the whole prompt.
+//
 // Plain C interface for ctypes. Every entry returns cudaGetLastError()
 // after its launch (0 on success). Launches go to the caller's stream.
 
@@ -114,7 +123,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse,
-                 int s, int causal, int window, float scale) {
+                 int sq, int sk, int q_offset, int causal, int window, float scale) {
   constexpr int LD = D + 1, NJ = D / 16;
   extern __shared__ float sm[];
   float* sQ = sm;
@@ -125,13 +134,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* sL = sM + BQ;
   float* sC = sL + BQ;
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const size_t base = (size_t)bh * s * D;
+  // q row r of this tile is query q0 + r, at absolute position
+  // q_offset + q0 + r; key row c is at position c
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ, qa = q_offset + q0;
+  const size_t qbase = (size_t)bh * sq * D, kbase = (size_t)bh * sk * D;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
-  const Mask mask{s, causal, window};
+  const Mask mask{sk, causal, window};
 
-  load_tile<T, D>(sQ, q + base, q0, s, scale);
+  load_tile<T, D>(sQ, q + qbase, q0, sq, scale);
   if (tid < BQ) { sM[tid] = -INFINITY; sL[tid] = 0.f; }
 
   float acc[4][NJ];
@@ -141,12 +152,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
   int lo, hi;
-  kv_range(q0, s, causal, window, lo, hi);
+  kv_range(qa, sk, causal, window, lo, hi);
   for (int kt = lo / BK; kt * BK < hi; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(sK, k + base, k0, s, 1.f);
-    load_tile<T, D>(sV, v + base, k0, s, 1.f);
+    load_tile<T, D>(sK, k + kbase, k0, sk, 1.f);
+    load_tile<T, D>(sV, v + kbase, k0, sk, 1.f);
     __syncthreads();
 
     float sc[4][4];
@@ -171,7 +182,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        sS[r * LS + c] = mask.ok(q0 + r, k0 + c) ? sc[i][j] : -INFINITY;
+        sS[r * LS + c] = mask.ok(qa + r, k0 + c) ? sc[i][j] : -INFINITY;
       }
     __syncthreads();
 
@@ -223,16 +234,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i, qp = q0 + r;
-    if (qp < s) {
+    if (qp < sq) {
       const float l = sL[r];
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        o[base + (size_t)qp * D + tx + 16 * j] = from_f<T>(l > 0.f ? acc[i][j] / l : 0.f);
+        o[qbase + (size_t)qp * D + tx + 16 * j] = from_f<T>(l > 0.f ? acc[i][j] / l : 0.f);
     }
   }
-  if (tid < BQ && q0 + tid < s) {
+  if (tid < BQ && q0 + tid < sq) {
     const float l = sL[tid];
-    lse[(size_t)bh * s + q0 + tid] = l > 0.f ? sM[tid] + logf(l) : 0.f;
+    lse[(size_t)bh * sq + q0 + tid] = l > 0.f ? sM[tid] + logf(l) : 0.f;
   }
 }
 
@@ -436,14 +447,14 @@ cudaError_t allow_smem(Kern kern, size_t bytes) {
 }
 
 template <typename T, int D>
-int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int s,
-        int causal, int window, float scale, cudaStream_t st) {
+int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
+        int sk, int q_offset, int causal, int window, float scale, cudaStream_t st) {
   const size_t smem = fwd_smem(D);
   cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((s + BQ - 1) / BQ, bh);
+  dim3 grid((sq + BQ - 1) / BQ, bh);
   flash_fwd_kernel<T, D><<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
-                                                 lse, s, causal, window, scale);
+                                                 lse, sq, sk, q_offset, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -488,10 +499,14 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, cons
 
 extern "C" {
 
+// The forward takes sq query rows and sk key rows; query row i sits at
+// absolute position q_offset + i (training: sq == sk, q_offset 0; the
+// suffix prefill: the suffix's rows over the prefix and itself).
 int repro_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                    int s, int d, int dtype, int causal, int window, float scale,
-                    void* stream) {
-  DISPATCH(fwd, q, k, v, o, (float*)lse, bh, s, causal, window, scale, (cudaStream_t)stream)
+                    int sq, int sk, int q_offset, int d, int dtype, int causal, int window,
+                    float scale, void* stream) {
+  DISPATCH(fwd, q, k, v, o, (float*)lse, bh, sq, sk, q_offset, causal, window, scale,
+           (cudaStream_t)stream)
 }
 
 int repro_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

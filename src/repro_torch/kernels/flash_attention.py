@@ -65,11 +65,8 @@ def _route(t: torch.Tensor) -> bool:
 
 
 def _launch(entry: str, counter: str, *args) -> None:
-    from .build import flash_attention_library
-    fn = getattr(flash_attention_library().lib, entry)
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} failed to launch: CUDA error {rc}")
+    from .build import launch
+    launch("flash_attention", entry, *args)
     LAUNCHES[counter] += 1
 
 
@@ -79,17 +76,31 @@ def _common(q, causal, window):
             d ** -0.5)
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, window=0
+def flash_attention_fwd(q, k, v, *, causal=True, window=0, q_offset=0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, H, S, D) q/k/v -> O (same dtype), lse (B, H, S) f32."""
+    """(B, H, Sq, D) q, (B, H, Sk, D) k/v -> O (B, H, Sq, D) in q's dtype,
+    lse (B, H, Sq) f32. Query row i sits at absolute position
+    ``q_offset + i``: training has Sk == Sq and ``q_offset`` 0, the
+    suffix prefill attends its rows over the prefix and itself."""
     if not _route(q):
-        return attention_ref(q, k, v, causal=causal, window=window)
-    _check("flash_attention_fwd", q, q=q, k=k, v=v)
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+    _check("flash_attention_fwd", q, q=q)
+    _check("flash_attention_fwd", k, k=k, v=v)
+    if (k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]
+            or k.dtype != q.dtype or k.device != q.device):
+        raise ValueError(f"flash_attention_fwd: k {tuple(k.shape)} "
+                         f"{k.dtype} does not match q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention_fwd: q_offset {q_offset} < 0")
+    b, h, sq, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch("repro_flash_fwd", "flash_fwd", q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            *_common(q, causal, window))
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(), b * h, sq,
+            k.shape[2], int(q_offset), d, _DTYPES[q.dtype],
+            int(bool(causal)), int(window), d ** -0.5)
     return o, lse
 
 

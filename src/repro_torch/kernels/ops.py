@@ -1,17 +1,49 @@
 """Model-layout entry to the attention kernels (the reference's
-``kernels/ops.py:flash_attention``). Routing is by the tensor's device
-inside each kernel wrapper: CUDA launches the kernel, CPU takes the plain
-version. Tiles are fixed at 64 x 64: the reference's 128 x 128 defaults
-(``autotune.DEFAULTS``) are TPU tiles, and f32 tiles of 128 rows would
-not fit a block's shared memory. Autotuning is a later slice."""
+``kernels/ops.py``). Routing is by the tensor's device inside each kernel
+wrapper: CUDA launches the kernel, CPU takes the plain version. Tiles are
+fixed (flash attention 64 x 64; decode one block per (batch, head)): the
+reference's block sizes and its autotuned routing (``autotune.DEFAULTS``,
+``_resolve``) are TPU choices, and autotuning is a later slice."""
 from __future__ import annotations
 
+import torch
+
 from . import flash_attention as _flash
+from . import flash_decode as _decode
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
-    """q/k/v: (B, S, H, D) (model layout) -> (B, S, H, D). Differentiable
-    in q, k, v; any sequence length."""
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+    """q: (B, Sq, H, D), k/v: (B, Sk, H, D) (model layout) -> (B, Sq, H,
+    D); any sequence length. Query row i sits at absolute position
+    ``q_offset + i``. Differentiable in q, k, v when Sk == Sq and
+    ``q_offset`` is 0 (training, one-shot prefill); otherwise (the suffix
+    prefill over a filled cache) forward only."""
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    out = _flash.flash_attention(qt, kt, vt, causal=causal, window=window)
+    if q_offset == 0 and k.shape[1] == q.shape[1]:
+        out = _flash.flash_attention(qt, kt, vt, causal=causal,
+                                     window=window)
+    else:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise ValueError("flash_attention with q_offset or Sk != Sq "
+                             "is forward only")
+        out, _ = _flash.flash_attention_fwd(qt, kt, vt, causal=causal,
+                                            window=window,
+                                            q_offset=q_offset)
     return out.transpose(1, 2)
+
+
+def flash_decode(q, k, v, lengths):
+    """Single-query decode attention against a linear KV cache. q:
+    (B, 1, H, D); k/v: (B, S_cache, H_kv, D), the kv heads NOT repeated
+    (the reference takes them repeated to H; the result is the same);
+    lengths: (B,) valid-prefix rows. Not differentiable (serving only)."""
+    return _decode.flash_decode(q, k, v, lengths)
+
+
+def flash_decode_paged(q, k_pool, v_pool, pages, lengths):
+    """Paged decode attention. q: (B, 1, H, D); k_pool/v_pool:
+    (N_pages, page_size, H_kv, D) shared pools; pages: (B, P) per-slot
+    page table (-1 = unassigned); lengths: (B,) valid rows. Not
+    differentiable (serving only)."""
+    return _decode.flash_decode_paged(q, k_pool, v_pool, pages, lengths)

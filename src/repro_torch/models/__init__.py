@@ -1,3 +1,5 @@
-from .model import forward, init_params, param_count
+from .model import (decode_step, forward, init_cache, init_paged_cache,
+                    init_params, param_count, prefill, prefill_extend)
 
-__all__ = ["forward", "init_params", "param_count"]
+__all__ = ["decode_step", "forward", "init_cache", "init_paged_cache",
+           "init_params", "param_count", "prefill", "prefill_extend"]

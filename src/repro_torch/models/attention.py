@@ -1,10 +1,18 @@
-"""GQA attention for training (the reference's ``models/attention.py``).
-The attention core always goes through ``kernels.ops.flash_attention``,
-which routes on the tensor's device: the flash kernels on the card, their
-plain PyTorch version (``kernels/ref.py:attention_ref``) on the CPU. It
-stands in for the reference's plain ``full_attention`` /
-``chunked_attention``; the port has no switch between the kernel and the
-plain path other than the device."""
+"""GQA attention (the reference's ``models/attention.py``): training, the
+one-shot and suffix prefill that fill a decode cache, and one-token decode
+against a linear or paged KV cache.
+
+The attention cores go through ``kernels.ops``, which routes on the
+tensor's device: on the card the flash-attention forward kernel (training,
+one-shot and suffix prefill) and the flash-decode kernels (decode over a
+linear or paged cache), on the CPU their plain PyTorch versions
+(``kernels/ref.py``). The port has no switch between a kernel and its
+plain version other than the device. Decode caches are linear: a
+sliding-window ring buffer comes with the first windowed family.
+
+Caches are written in place: a decode step writes one row per example
+into the tensors it is given, and a prefill writes the prompt's rows.
+"""
 from __future__ import annotations
 
 import torch
@@ -40,9 +48,8 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     return torch.repeat_interleave(k, groups, dim=2)
 
 
-def attention(p, x, cos, sin, *, n_heads, n_kv_heads, head_dim,
-              causal=True, window=0):
-    """Training attention over the whole sequence."""
+def _qkv(p, x, cos, sin, n_heads, n_kv_heads, head_dim):
+    """Projections and RoPE: (B, S, H, D) q and (B, S, Hkv, D) k, v."""
     b, s, _ = x.shape
     q = linear(p["wq"], x).reshape(b, s, n_heads, head_dim)
     k = linear(p["wk"], x).reshape(b, s, n_kv_heads, head_dim)
@@ -50,8 +57,118 @@ def attention(p, x, cos, sin, *, n_heads, n_kv_heads, head_dim,
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _out(p, out):
+    b, s, h, d = out.shape
+    return linear(p["wo"], out.reshape(b, s, h * d))
+
+
+def attention(p, x, cos, sin, *, n_heads, n_kv_heads, head_dim,
+              causal=True, window=0):
+    """Training attention over the whole sequence."""
+    q, k, v = _qkv(p, x, cos, sin, n_heads, n_kv_heads, head_dim)
     groups = n_heads // n_kv_heads
-    k = _repeat_kv(k, groups)
-    v = _repeat_kv(v, groups)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
-    return linear(p["wo"], out.reshape(b, s, n_heads * head_dim))
+    out = ops.flash_attention(q, _repeat_kv(k, groups),
+                              _repeat_kv(v, groups), causal=causal,
+                              window=window)
+    return _out(p, out)
+
+
+def attention_prefill(p, x, cos, sin, cache, *, n_heads, n_kv_heads,
+                      head_dim):
+    """One-shot prefill: attend over the whole prompt (the math of
+    ``attention``) and write its K/V rows into rows ``[0, S)`` of a fresh
+    linear decode cache {"k", "v"} (B, S_cache, Hkv, D)."""
+    s = x.shape[1]
+    q, k, v = _qkv(p, x, cos, sin, n_heads, n_kv_heads, head_dim)
+    s_cache = cache["k"].shape[1]
+    if s > s_cache:
+        raise ValueError(f"prompt of {s} rows does not fit a cache of "
+                         f"{s_cache}")
+    cache["k"][:, :s] = k.to(cache["k"].dtype)
+    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    groups = n_heads // n_kv_heads
+    out = ops.flash_attention(q, _repeat_kv(k, groups),
+                              _repeat_kv(v, groups), causal=True)
+    return _out(p, out), cache
+
+
+def attention_prefill_extend(p, x, cos, sin, cache, *, start, n_heads,
+                             n_kv_heads, head_dim):
+    """Suffix prefill: rows ``[0, start)`` of the linear cache are already
+    filled (a shared-prefix gather); write rows ``[start, start + S)`` and
+    attend the suffix queries over rows ``[0, start + S)`` with the flash
+    forward at query offset ``start``. x: (B, S_suffix, D), the suffix's
+    residual stream. Each output row reduces over the same keys, in the
+    same order, as the same row of ``attention_prefill`` over the whole
+    prompt."""
+    s = x.shape[1]
+    q, k, v = _qkv(p, x, cos, sin, n_heads, n_kv_heads, head_dim)
+    s_cache = cache["k"].shape[1]
+    if start + s > s_cache:
+        raise ValueError(f"rows [{start}, {start + s}) do not fit a cache "
+                         f"of {s_cache}")
+    cache["k"][:, start:start + s] = k.to(cache["k"].dtype)
+    cache["v"][:, start:start + s] = v.to(cache["v"].dtype)
+    groups = n_heads // n_kv_heads
+    kk = _repeat_kv(cache["k"][:, :start + s], groups)
+    vv = _repeat_kv(cache["v"][:, :start + s], groups)
+    out = ops.flash_attention(q, kk, vv, causal=True, q_offset=start)
+    return _out(p, out), cache
+
+
+def attention_decode(p, x, cos, sin, cache, index, *, n_heads, n_kv_heads,
+                     head_dim, pages=None):
+    """One-token decode. x: (B, 1, D); ``index``: (B,) absolute decode
+    positions. cache {"k", "v"}: (B, max_len, Hkv, D), linear. ``pages``
+    switches to the paged layout: cache k/v are shared pools
+    (N_pages + 1, page_size, Hkv, D), the last page a scratch page, and
+    ``pages`` is the (B, P) block table (-1 = unassigned)."""
+    q, k, v = _qkv(p, x, cos, sin, n_heads, n_kv_heads, head_dim)
+    if pages is not None:
+        return _attention_decode_paged(p, q, k, v, cache, index, pages)
+    _scatter_rows(cache["k"], k, index)
+    _scatter_rows(cache["v"], v, index)
+    out = ops.flash_decode(q, cache["k"], cache["v"], index + 1)
+    return _out(p, out), cache
+
+
+def _attention_decode_paged(p, q, k, v, cache, index, pages):
+    """Paged one-token decode: write this step's K/V row into the pool
+    page that owns position ``index``, then attend over the pages of the
+    block table with the paged flash-decode kernel.
+
+    Write-safety: an example whose table has no page for ``index`` (an
+    idle engine slot, or an index past the table) writes into the scratch
+    page, the pool's last, which no table entry names. No host sync."""
+    b = q.shape[0]
+    n_rows, page_size = cache["k"].shape[:2]
+    scratch = n_rows - 1
+    p_tab = pages.shape[1]
+    ar = torch.arange(b, device=q.device)
+    pidx, off = index // page_size, index % page_size
+    pid = pages[ar, pidx.clamp(max=p_tab - 1)].long()
+    pid = torch.where((pidx < p_tab) & (pid >= 0), pid,
+                      torch.full_like(pid, scratch))
+    cache["k"][pid, off] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][pid, off] = v[:, 0].to(cache["v"].dtype)
+    out = ops.flash_decode_paged(q, cache["k"], cache["v"], pages,
+                                 index + 1)
+    return _out(p, out), cache
+
+
+def _scatter_rows(cache: torch.Tensor, new: torch.Tensor,
+                  slots: torch.Tensor) -> torch.Tensor:
+    """In place, per example: cache[b, slots[b]] = new[b, 0]. cache
+    (B, S, H, D), new (B, 1, H, D), slots (B,). A row at or past S is
+    dropped (JAX drops an out-of-bounds scatter; CUDA would fault): the
+    row is clamped and the old value written back, with no host sync."""
+    b, s = cache.shape[:2]
+    ar = torch.arange(b, device=cache.device)
+    row = slots.clamp(0, s - 1)
+    inside = (slots >= 0) & (slots < s)
+    cache[ar, row] = torch.where(inside[:, None, None],
+                                 new[:, 0].to(cache.dtype), cache[ar, row])
+    return cache

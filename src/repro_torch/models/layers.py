@@ -43,8 +43,10 @@ def unembed(p, x):
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # a fill, not torch.tensor(theta, device=...): that copies from the
+    # host and waits for the card, once per decode step
+    base = torch.full((), theta, dtype=torch.float32, device=device)
+    return 1.0 / torch.pow(base, exps)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float

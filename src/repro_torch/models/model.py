@@ -5,6 +5,8 @@ per-layer weight is stacked with a leading ``n_units`` dimension.
 Public API (params are plain nested dicts of tensors):
     init_params(cfg, seed, dtype, device) -> params
     forward(cfg, params, batch, ...)      -> (logits, aux)
+    init_cache / init_paged_cache         -> decode cache
+    prefill / prefill_extend / decode_step (serving)
 
 Other families raise ``NotImplementedError`` naming the slice that brings
 them. The reference's sharding constraints are no-ops on one device and
@@ -110,13 +112,16 @@ def _mrope_positions(cfg: ArchConfig, positions: torch.Tensor):
 # ---------------------------------------------------------------------- #
 # forward
 # ---------------------------------------------------------------------- #
+def _mlp_block(p, cfg, x):
+    return x + swiglu(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps))
+
+
 def _attn_block_fwd(p, cfg, x, cos, sin, window):
     h = attn_mod.attention(
         p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cos, sin,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, window=window)
-    x = x + h
-    return x + swiglu(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps))
+    return _mlp_block(p, cfg, x + h)
 
 
 def _make_unit_fwd(cfg: ArchConfig, cos, sin, window):
@@ -168,3 +173,136 @@ def _lm_head(cfg, params, x):
     if cfg.tie_embeddings:
         return unembed(params["embed"], x)
     return linear(params["lm_head"], x)
+
+
+# ---------------------------------------------------------------------- #
+# decode (serving)
+# ---------------------------------------------------------------------- #
+def _kv_cache(shape, dt, dev):
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def _require_linear(cfg: ArchConfig) -> None:
+    """Decode caches are linear (row t == position t). The reference's
+    sliding-window ring buffer comes with the port's first windowed
+    family; no family ported so far has a window."""
+    _require_ported(cfg)
+    if cfg.sliding_window:
+        raise ValueError(
+            f"{cfg.name}: decode caches are linear; the sliding-window "
+            f"ring buffer (window {cfg.sliding_window}) is not ported yet")
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> Dict:
+    """Zeroed linear decode cache: {"units": {"k", "v"} (n_units, B,
+    max_len, Hkv, D), "index": 0-dim int64}."""
+    _require_linear(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_units, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"units": _kv_cache(shape, torch_dtype(dtype or cfg.dtype), dev),
+            "index": torch.zeros((), dtype=torch.long, device=dev)}
+
+
+def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+                     page_size: int, n_pages: int, dtype=None,
+                     device=None) -> Dict:
+    """Paged decode cache: the K/V leaves become shared pools
+    (n_units, n_pages + 1, page_size, Hkv, D) addressed through one block
+    table ``pages``: (batch, max_len // page_size) int32, -1 =
+    unassigned. Pool page ``n_pages`` is a scratch page that no table
+    entry names: a decode write with no page of its own lands there (the
+    reference drops it with an out-of-bounds scatter)."""
+    _require_linear(cfg)
+    if max_len % page_size:
+        raise ValueError(f"max_len {max_len} is not a multiple of "
+                         f"page_size {page_size}")
+    dev = resolve_device(device)
+    shape = (cfg.n_units, n_pages + 1, page_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    return {"units": _kv_cache(shape, torch_dtype(dtype or cfg.dtype), dev),
+            "index": torch.zeros((), dtype=torch.long, device=dev),
+            "pages": torch.full((batch, max_len // page_size), -1,
+                                dtype=torch.int32, device=dev)}
+
+
+def _akw(cfg):
+    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim)
+
+
+@torch.no_grad()
+def prefill(cfg: ArchConfig, params, cache, tokens
+            ) -> Tuple[torch.Tensor, Dict]:
+    """One-shot prefill of a fresh cache (index 0) from the whole prompt.
+    tokens: (B, S) int. Writes the prompt's K/V rows in place and returns
+    (logits (B, S, V), cache with ``index`` S)."""
+    _require_linear(cfg)
+    b, s = tokens.shape
+    x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    cos, sin = _rope_tables(cfg, torch.arange(s, device=tokens.device))
+    for u in range(cfg.n_units):
+        p = unit_slice(params["units"], u)
+        h, _ = attn_mod.attention_prefill(
+            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cos, sin,
+            unit_slice(cache["units"], u), **_akw(cfg))
+        x = _mlp_block(p, cfg, x + h)
+    x = rms_norm(params["ln_f"], x, cfg.norm_eps)
+    new_cache = dict(cache)
+    new_cache["index"] = torch.full_like(cache["index"], s)
+    return _lm_head(cfg, params, x), new_cache
+
+
+@torch.no_grad()
+def prefill_extend(cfg: ArchConfig, params, cache, tokens, *,
+                   start: int) -> Tuple[torch.Tensor, Dict]:
+    """Suffix prefill: continue a linear cache whose rows ``[0, start)``
+    are filled (the prefix-sharing engine gathers a matched prompt prefix
+    out of the page pool) and compute only the suffix. tokens:
+    (B, S_suffix) at absolute positions ``start .. start + S - 1``.
+    Returns (logits (B, S_suffix, V), cache with index start + S)."""
+    _require_linear(cfg)
+    b, s = tokens.shape
+    x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    cos, sin = _rope_tables(
+        cfg, torch.arange(start, start + s, device=tokens.device))
+    for u in range(cfg.n_units):
+        p = unit_slice(params["units"], u)
+        h, _ = attn_mod.attention_prefill_extend(
+            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cos, sin,
+            unit_slice(cache["units"], u), start=start, **_akw(cfg))
+        x = _mlp_block(p, cfg, x + h)
+    x = rms_norm(params["ln_f"], x, cfg.norm_eps)
+    new_cache = dict(cache)
+    new_cache["index"] = torch.full_like(cache["index"], start + s)
+    return _lm_head(cfg, params, x), new_cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, params, cache, tokens, *, index=None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """tokens: (B, 1) int; ``index``: absolute position, 0-dim or per
+    example (B,), on the cache's device (default ``cache["index"]``).
+    Writes one K/V row per example in place and returns (logits
+    (B, 1, V), cache with index + 1). With ``cache["pages"]`` the cache
+    is paged and attention takes the paged flash-decode kernel on the
+    card; else the linear one."""
+    _require_linear(cfg)
+    b = tokens.shape[0]
+    idx = cache["index"] if index is None else index
+    vec = idx.expand(b) if idx.ndim == 0 else idx
+    x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    cos, sin = _rope_tables(cfg, vec[:, None])
+    pages = cache.get("pages")
+    for u in range(cfg.n_units):
+        p = unit_slice(params["units"], u)
+        h, _ = attn_mod.attention_decode(
+            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cos, sin,
+            unit_slice(cache["units"], u), vec, pages=pages,
+            **_akw(cfg))
+        x = _mlp_block(p, cfg, x + h)
+    x = rms_norm(params["ln_f"], x, cfg.norm_eps)
+    new_cache = dict(cache)
+    new_cache["index"] = idx + 1
+    return _lm_head(cfg, params, x), new_cache

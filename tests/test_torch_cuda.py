@@ -2,11 +2,17 @@
 NVIDIA GPU with ``nvcc``; marked ``cuda`` and skipped without one. Run
 on the card with ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``."""
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ref
+from repro_torch.launch.engine import DecodeEngine
+from repro_torch.models import init_params
 
 pytestmark = pytest.mark.cuda
 
@@ -21,13 +27,14 @@ def cuda():
 def _err(got, want):
     """Largest per-row relative error, as ``chip_smoke.py`` holds the
     kernels: over the rows of the last axis (each lse entry a row of
-    one), ||got - want|| / max(||want||, median row norm)."""
+    one), ||got - want|| / max(||want||, median nonzero row norm)."""
     g, w = got.float(), want.float()
     cols = w.shape[-1] if w.dim() == 4 else 1
     g, w = g.reshape(-1, cols), w.reshape(-1, cols)
     norm = w.norm(dim=1)
+    floor = norm[norm > 0].median() if bool((norm > 0).any()) else 1.0
     return float(((g - w).norm(dim=1)
-                  / torch.maximum(norm, norm.median())).max())
+                  / torch.clamp_min(norm, floor)).max())
 
 
 # chip_smoke.py's limits: f32 summation order; two bf16 rounding steps
@@ -58,6 +65,31 @@ def test_kernels_match_plain(cuda, shape, dtype, causal, window, tol):
         assert _err(got, want) <= tol
 
 
+@pytest.mark.parametrize("sk,start,d,dtype,tol", [
+    (1000, 333, 128, torch.float32, 1e-5),
+    (777, 700, 64, torch.bfloat16, 2 ** -7),
+    (130, 64, 64, torch.float32, 1e-5),
+])
+def test_forward_at_a_query_offset(cuda, sk, start, d, dtype, tol):
+    """The suffix prefill's form (Sk - start query rows at absolute
+    positions start ..) against the plain version, and bitwise equal to
+    the same rows of the one-shot forward over all Sk rows."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    q, k, v = (torch.randn((2, 3, sk, d), generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    qs = q[:, :, start:].contiguous()
+    fa.reset_launches()
+    o, lse = fa.flash_attention_fwd(qs, k, v, causal=True, q_offset=start)
+    o_full, lse_full = fa.flash_attention_fwd(q, k, v, causal=True)
+    o_r, lse_r = ref.attention_ref(qs, k, v, causal=True, q_offset=start)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd"] == 2
+    assert _err(o, o_r) <= tol and _err(lse, lse_r) <= tol
+    assert torch.equal(o, o_full[:, :, start:])
+    assert torch.equal(lse, lse_full[:, :, start:])
+
+
 def test_wrong_head_dim_raises(cuda):
     q = torch.zeros((1, 1, 64, 32), device=cuda)
     with pytest.raises(ValueError, match="D in"):
@@ -81,3 +113,86 @@ def test_model_attention_on_the_card_takes_the_kernels(cuda):
     torch.cuda.synchronize()
     assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkdv": 1}
+
+
+def _decode_inputs(gen, b, h, h_kv, s, d, dtype, page_size=16):
+    """q, linear k/v, ragged lengths (one 0, one past the cache), and the
+    same rows in a shuffled pool with -1 past each length."""
+    dev = gen.device
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, s, h_kv, d), generator=gen, device=dev)
+            .to(dtype) for _ in range(2))
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
+    lengths[0], lengths[-1] = 0, s + 7
+    p_tab = -(-s // page_size)
+    n_pg = b * p_tab + 2
+    perm = torch.randperm(n_pg, generator=gen, device=dev)
+    pages = torch.full((b, p_tab), -1, dtype=torch.int32, device=dev)
+    pools = [torch.zeros((n_pg, page_size, h_kv, d), dtype=dtype,
+                         device=dev) for _ in range(2)]
+    for i in range(b):
+        n = min(int(lengths[i]), s)
+        for j in range(-(-n // page_size)):
+            pg = int(perm[i * p_tab + j])
+            pages[i, j] = pg
+            rows = slice(j * page_size, min((j + 1) * page_size, s))
+            width = rows.stop - rows.start
+            pools[0][pg, :width] = k[i, rows]
+            pools[1][pg, :width] = v[i, rows]
+    return q, k, v, lengths, pools, pages
+
+
+# chip_smoke.py's limits, on the per-row error over each (b, head) row
+@pytest.mark.parametrize("b,h,h_kv,s,d,dtype,tol", [
+    (4, 36, 36, 1000, 64, torch.bfloat16, 2 ** -7),
+    (4, 12, 2, 777, 128, torch.bfloat16, 2 ** -7),
+    (3, 4, 2, 333, 128, torch.float32, 1e-5),
+    (3, 6, 1, 77, 64, torch.float32, 1e-5),
+    (2, 6, 1, 77, 64, torch.bfloat16, 2 ** -7),
+])
+def test_decode_kernels_match_plain(cuda, b, h, h_kv, s, d, dtype, tol):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    q, k, v, lengths, (kp, vp), pages = _decode_inputs(gen, b, h, h_kv, s,
+                                                       d, dtype)
+    fd.reset_launches()
+    out = fd.flash_decode(q, k, v, lengths)
+    out_p = fd.flash_decode_paged(q, kp, vp, pages, lengths)
+    g = h // h_kv
+    want = ref.flash_decode_ref(q, k.repeat_interleave(g, 2),
+                                v.repeat_interleave(g, 2), lengths)
+    want_p = ref.flash_decode_paged_ref(q, kp, vp, pages, lengths)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES == {"flash_decode": 1, "flash_decode_paged": 1}
+    assert float(out[0].abs().max()) == 0.0     # length 0 gives 0
+    rows = slice(1, None)                       # rows with a valid key
+    assert _err(out[rows], want[rows]) <= tol
+    assert _err(out_p[rows], want_p[rows]) <= tol
+    # the same rows through the table: the same bits, by construction.
+    # A length past S counts S rows of the linear cache but the table's
+    # ceil(S / 16) pages, so only slots that fit the cache compare.
+    fits = lengths <= s
+    assert not fits.all()
+    assert torch.equal(out[fits], out_p[fits])
+
+
+def test_decode_step_on_the_card_takes_the_kernels(cuda):
+    """No switch: decode on CUDA tensors launches the decode kernels, one
+    per layer and step, the paged one under a block table; paged ==
+    dense tokens."""
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b").reduced(),
+                              dtype="float32")
+    params = init_params(cfg, 0, device=cuda)
+    prompts = [torch.randint(0, cfg.vocab, (n,)).numpy() for n in (5, 9, 3)]
+    outs = []
+    for paged in (False, True):
+        eng = DecodeEngine(cfg, params, n_slots=2, max_len=32, segment=4,
+                           paged=paged, page_size=8)
+        fd.reset_launches()
+        rids = [eng.submit(p, 6) for p in prompts]
+        out = eng.run()
+        steps = eng.stats["segments"] * eng.segment * cfg.n_layers
+        key = "flash_decode_paged" if paged else "flash_decode"
+        assert fd.LAUNCHES[key] == steps > 0
+        outs.append([out[r] for r in rids])
+    assert outs[0] == outs[1]

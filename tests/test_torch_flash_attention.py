@@ -114,3 +114,35 @@ def test_other_devices_raise():
     q = torch.empty((1, 1, 8, 64), device="meta")
     with pytest.raises(ValueError, match="device"):
         fa.flash_attention_fwd(q, q, q)
+
+
+@pytest.mark.parametrize("sk,start", [(100, 37), (129, 64), (70, 68)])
+def test_suffix_form_matches_reference_full_attention(sk, start):
+    """The suffix prefill's form: Sk - start query rows at absolute
+    positions start .. Sk - 1 over all Sk keys, against the reference's
+    ``full_attention`` with the same ``q_offset`` (model layout)."""
+    from repro.models.attention import full_attention as jax_full
+    k, v, q_all, _ = _inputs((2, sk, 3, 64), seed=sk)
+    q = q_all[:, start:]
+    want = jax_full(*map(jnp.asarray, (q, k, v)), causal=True,
+                    q_offset=start)
+    fa.reset_launches()
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=True, q_offset=start)
+    assert got.shape == q.shape
+    assert fa.LAUNCHES["flash_fwd"] == 0
+    _close(got, want)
+    # and the same rows of the one-shot form, to the same tolerance
+    full = ops.flash_attention(*map(torch.from_numpy, (q_all, k, v)),
+                               causal=True)
+    _close(got, full[:, start:])
+
+
+def test_suffix_form_is_forward_only():
+    q, k, v, _ = map(torch.from_numpy, _inputs((1, 40, 2, 64), seed=3))
+    with pytest.raises(ValueError, match="forward only"):
+        ops.flash_attention(q[:, 8:].requires_grad_(True), k, v,
+                            q_offset=8)
+    with torch.no_grad():
+        assert ops.flash_attention(q[:, 8:].requires_grad_(True), k, v,
+                                   q_offset=8).shape == (1, 32, 2, 64)

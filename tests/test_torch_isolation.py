@@ -20,7 +20,9 @@ leaked = sorted(m for m in sys.modules
                 or m == "repro" or m.startswith("repro."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert "repro_torch.kernels.flash_attention" in names
+for name in ("kernels.flash_attention", "kernels.flash_decode",
+             "launch.serve", "launch.engine", "launch.prefix"):
+    assert "repro_torch." + name in names, name
 """
 
 
@@ -32,7 +34,7 @@ def test_port_imports_neither_jax_nor_reference():
         capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     count = int(out.stdout.split()[0])
-    assert count >= 20
+    assert count >= 31
 
 
 def test_no_source_of_the_port_names_jax_or_the_reference():
