@@ -3,26 +3,32 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths (``src/repro_torch``) at full published
-width: co-scheduled, gradient-accumulated training of minicpm-2b and
-qwen2-vl-2b with attention on the hand-written CUDA flash kernels, and
+Drives the port's paths (``src/repro_torch``) at full published width:
+co-scheduled, gradient-accumulated training of minicpm-2b and
+qwen2-vl-2b with attention on the hand-written CUDA flash kernels;
+training of the hybrid zamba2-7b (36 of its 81 layers) on the CUDA
+Mamba2 SSD chunk-scan kernels and the flash kernels at head_dim 112; and
 serving (prefill, KV-cache decode and the continuous-batching
 ``DecodeEngine``) on the flash-attention forward and the two CUDA
 flash-decode kernels. Phases, in order; each prints its own line and any
 failure exits non-zero:
 
-1. build    - builds the kernel libraries from
-              ``src/repro_torch/kernels/csrc``, one nvcc per source, all
-              started together.
+1. build    - builds the three kernel libraries (flash attention, flash
+              decode, SSD) from ``src/repro_torch/kernels/csrc``, one
+              nvcc per source, all started together.
 2. parity   - each kernel against its plain PyTorch version on the card,
               at the main paths' shapes plus a ragged-S f32 case, a
-              non-causal case and a window case (attention), the
+              non-causal case and a window case (attention), head_dim
+              112 (bf16 at zamba2's shape and ragged f32), the
               forward at a query offset (the suffix prefill; its rows
-              must equal the one-shot forward's bitwise), and a
+              must equal the one-shot forward's bitwise), a
               length-0 slot, a ragged cache length and one kv head
-              (decode); times
-              kernel, plain version and the PyTorch library call (SDPA, a
-              yardstick the port never calls).
+              (decode), and the SSD forward (with and without per-chunk
+              states) and backward at zamba2's layer shape, at a ragged
+              S with P 128, N 16, and with bf16 inputs, each also
+              against an f64 evaluation; times kernel, plain version
+              and the PyTorch library call (SDPA, a yardstick the port
+              never calls; none exists for the SSD scan).
 3. solo     - minicpm-2b through ``ScheduleExecutor``: 3 steps at s = 4,
               a reconfig to s = 2, 2 steps, one ragged step (B = 5,
               b = 2, s = 3), finish; launch counts must equal
@@ -31,12 +37,19 @@ failure exits non-zero:
               step times and the interference ratios xi.
 5. profile  - one profiled step of each model: device time by kernel
               category and the device's busy share of the step.
-6. accum    - on the card, accumulated == full-batch gradients on
-              reduced configs in f32 (the reference's test tolerance).
-7. serve    - minicpm-2b ``generate``: batch 4, 1024-token prompts,
+6. hybrid   - zamba2-7b at 36 of 81 layers through ``ScheduleExecutor``:
+              2 steps at s = 4, a reconfig to s = 2, one ragged step
+              (B = 5, b = 2); launch counts must equal their expected
+              values (SSD per layer, flash per shared-block
+              application); ``measure_pair(zamba2-7b@36, qwen2-vl-2b)``
+              and one profiled step.
+7. accum    - on the card, accumulated == full-batch gradients on
+              reduced configs in f32 (the reference's test tolerance),
+              the hybrid at one and two units.
+8. serve    - minicpm-2b ``generate``: batch 4, 1024-token prompts,
               64 greedy tokens, ``engine="scan"`` and ``"eager"`` (equal
               tokens); prefill and per-token times, launch counts.
-8. engine   - qwen2-vl-2b ``DecodeEngine``, 8 slots, 16 requests, run
+9. engine   - qwen2-vl-2b ``DecodeEngine``, 8 slots, 16 requests, run
               dense, paged and prefix-shared: paged == dense,
               prefix-shared == private and two requests == their solo
               ``generate`` (required); whether cuBLAS rows depend on the
@@ -78,13 +91,26 @@ BATCH = 4
 TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 # published H100 SXM peaks (NVIDIA data sheet), dense
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# The SSD kernels against their plain version, f32 outputs. Both run the
+# same chunked scan in f32, and the chunk-local cumsum of A dt enters
+# every exponent: at these inputs it reaches ~-100 in a chunk, where an
+# f32 ulp is 7.6e-6, so each decay factor may differ by ~1e-5 relative
+# between two summation orders, and sums with cancellation (d(dA) is a
+# suffix sum of terms of both signs) amplify that. The limit is 1e-4;
+# the parity rows also report each version's error against an f64
+# evaluation of the plain version, which shows which one is off. Outputs
+# in bf16 (y, dx from bf16 inputs) take TOL["bfloat16"].
+SSD_TOL = 1e-4
 REPLACES = {
     "flash_fwd": "src/repro/kernels/flash_attention.py:76",
     "flash_bwd_dq": "src/repro/kernels/flash_attention.py:191",
     "flash_bwd_dkdv": "src/repro/kernels/flash_attention.py:218",
     "flash_decode": "src/repro/kernels/flash_decode.py:38",
     "flash_decode_paged": "src/repro/kernels/flash_decode.py:132",
+    "ssd_fwd": "src/repro/kernels/mamba2_scan.py:49",
+    "ssd_bwd": "src/repro/kernels/mamba2_scan.py:90",
 }
 SOURCES = {
     "flash_fwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -92,7 +118,12 @@ SOURCES = {
     "flash_bwd_dkdv": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "flash_decode_paged": "src/repro_torch/kernels/csrc/flash_decode.cu",
+    "ssd_fwd": "src/repro_torch/kernels/csrc/ssd.cu",
+    "ssd_bwd": "src/repro_torch/kernels/csrc/ssd.cu",
 }
+# the hybrid: zamba2-7b at full width, 36 of its 81 layers (4 of its 9
+# units of nine Mamba2 layers and the shared block)
+HYBRID_LAYERS = 36
 # serving shapes
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, MAX_LEN = 4, 1024, 64, 4096
 ENGINE_SLOTS, ENGINE_SEGMENT, ENGINE_REQUESTS, SYSTEM_PREFIX = 8, 16, 16, 1024
@@ -453,6 +484,169 @@ def decode_case(label, b, h, h_kv, s, d, dtype, lengths, timed,
     return abs_errs, timing
 
 
+def _ssd_inputs(shape, dtype, seed=0):
+    """x, dt = softplus(N - 1), A = -exp(N / 2) (f32), Bm, Cm and a
+    cotangent dy, as the reference's SSD tests draw them."""
+    import torch
+    import torch.nn.functional as F
+    b, s, h, p, n = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def r(*sh):
+        return torch.randn(sh, generator=gen, device="cuda")
+    x, dt = r(b, s, h, p), F.softplus(r(b, s, h) - 1)
+    a = -torch.exp(r(h) * 0.5)
+    bm, cm, dy = r(b, s, n), r(b, s, n), r(b, s, h, p)
+    return ([t.to(dtype) for t in (x, dt)] + [a]
+            + [t.to(dtype) for t in (bm, cm, dy)])
+
+
+def _ssd_bounds(shape, dtype_name) -> dict:
+    """Least milliseconds each SSD kernel could take on an H100, at the
+    kernel's chunk L = 64: the larger of bytes over the memory rate (each
+    input read once, each output written once; the forward with its
+    per-chunk states, as training runs it) and the chunked algorithm's
+    products over the f32 peak (the arithmetic is f32 whatever the input
+    type); the TF32 time beside it. The intra-chunk (L, L) products count
+    only the L (L + 1) / 2 causal pairs the output needs, as ``_bounds``
+    counts causal attention."""
+    from repro_torch.kernels.ssd import CHUNK as L
+    b, s, h, p, n = shape
+    elt = 2 if dtype_name == "bfloat16" else 4
+    x, row, bc = b * s * h * p * elt, b * s * h * elt, b * s * n * elt
+    states = b * h * (s // L) * p * n * 4
+    chunks = b * h * (s // L)
+    pairs = L * (L + 1) // 2
+    work = {
+        # over the pairs: C B^T, m (x dt); C state^T, (x w)^T B
+        "ssd_fwd": (2 * x + row + 2 * bc + 4 * h + states,
+                    chunks * 2 * (pairs * (n + p) + 2 * L * p * n)),
+        # over the pairs: scores, dscores^T C, dscores B (N), dxdt, dm
+        # (P); dxw, y_inter, g, dyec s0, dyec^T C; dx, ddt, d(dA), dB and
+        # dC partials out
+        "ssd_bwd": (3 * x + row + 2 * bc + 4 * h + states
+                    + 2 * b * s * h * 4 + 2 * b * s * h * n * 4,
+                    chunks * 2 * (pairs * (3 * n + 2 * p)
+                                  + 5 * L * p * n)),
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        out[name] = {"bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes > t_ops
+                     else "operations",
+                     "bound_tf32_ms": max(t_bytes, flops / PEAK_TF32 * 1e3),
+                     "bound_bytes": nbytes, "bound_flops": flops}
+    return out
+
+
+def ssd_case(label, shape, dtype, timed):
+    """Both SSD kernels against their plain versions on the same inputs
+    (the forward with and without per-chunk states, the backward's raw
+    outputs), each also against an f64 evaluation of the plain version;
+    then the whole padded autograd path against autograd of the plain
+    forward. If ``timed``: kernel and plain times and the bounds."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, ssd
+    x, dt, a, bm, cm, dy = _ssd_inputs(shape, dtype)
+    s = shape[1]
+    pad = -s % ssd.CHUNK
+    xp = F.pad(x, (0, 0, 0, 0, 0, pad))
+    dtp, bp, cp = (F.pad(t, (0, 0, 0, pad)) for t in (dt, bm, cm))
+    dyp = F.pad(dy, (0, 0, 0, 0, 0, pad))
+    args = (xp, dtp, a, bp, cp)
+    y, st = ssd.ssd_fwd(*args, return_states=True)
+    y_only = ssd.ssd_fwd(*args)
+    raw = ssd.ssd_bwd(*args, st, dyp)
+    y_r, st_r = ref.ssd_fwd_ref(*args, chunk=ssd.CHUNK, return_states=True)
+    raw_r = ref.ssd_bwd_ref(*args, st_r, dyp, chunk=ssd.CHUNK)
+    args64 = [t.double() for t in args]
+    y64, st64 = ref.ssd_fwd_ref(*args64, chunk=ssd.CHUNK,
+                                return_states=True)
+    raw64 = ref.ssd_bwd_ref(*args64, st64, dyp.double(), chunk=ssd.CHUNK)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    outs = {"y": (y, y_r, y64), "states": (st, st_r, st64)}
+    outs.update({n: (k, p, d) for n, k, p, d in zip(
+        ("dx", "ddt", "dda", "dbh", "dch"), raw, raw_r, raw64)})
+
+    def tol(t):
+        return TOL["bfloat16"] if t.dtype == torch.bfloat16 else SSD_TOL
+    errs = {n: _row_err(k, p) for n, (k, p, _) in outs.items()}
+    bad = {n: e for n, e in errs.items() if not e <= tol(outs[n][0])}
+    # the whole function (padding, the autograd.Function, the chain rule
+    # outside the kernel) against autograd of the plain forward in f64 on
+    # the same inputs: each bf16 gradient is then one rounding (half an
+    # ulp, <= 2**-8) from its f32 value, where two bf16 results could sit
+    # a whole ulp apart. dA (H,) sums B S terms of both signs: 1e-4 of
+    # max(1, max|dA|), as the CPU tests hold it.
+    leaves = [t.detach().requires_grad_(True) for t in (x, dt, a, bm, cm)]
+    grads = torch.autograd.grad(ssd.ssd(*leaves), leaves, dy)
+
+    def plain_grads(f64: bool):
+        lv = [(t.double() if f64 else t).detach().requires_grad_(True)
+              for t in (x, dt, a, bm, cm)]
+        y_p = ref.ssd_fwd_ref(*(F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                                if t.dim() > 1 else t for t in lv),
+                              chunk=ssd.CHUNK)[:, :s]
+        return torch.autograd.grad(y_p, lv, dy.to(y_p.dtype))
+    g_plain, g64 = plain_grads(False), plain_grads(True)
+    names = ("dx", "ddt", "dA", "dBm", "dCm")
+    fn_errs = {n: _row_err(g, w) for n, g, w in zip(names, grads, g64)
+               if n != "dA"}
+    fn_plain = {n: _row_err(g, w) for n, g, w in zip(names, g_plain, g64)
+                if n != "dA"}
+    da_err = float((grads[2].double() - g64[2]).abs().max()
+                   / max(1.0, float(g64[2].abs().max())))
+    bad.update({"function " + n: e for n, e in fn_errs.items()
+                if not e <= tol(x)})
+    if not da_err <= 1e-4:
+        bad["function dA vs f64"] = da_err
+    row = {"case": label, "shape": list(shape), "dtype": dname,
+           "tol": {"float32": SSD_TOL, "bfloat16": TOL["bfloat16"]},
+           "row_rel_err": errs,
+           "vs_f64": {n: {"kernel": _row_err(k, d), "plain": _row_err(p, d)}
+                      for n, (k, p, d) in outs.items()},
+           "function_vs_f64": {"kernel": fn_errs, "plain": fn_plain},
+           "function_dA_vs_f64": da_err,
+           "max_abs_err": {n: _abs_err(k, p) for n, (k, p, _) in
+                           outs.items()},
+           "y_without_states_equal": bool(torch.equal(y, y_only))}
+    if bad or not row["y_without_states_equal"]:
+        log("parity", **row)
+        raise AssertionError(f"SSD kernel disagrees with its plain version "
+                             f"in {label}: {bad}, y without states equal "
+                             f"{row['y_without_states_equal']}")
+    if not timed:
+        log("parity", **row)
+        return None
+    bounds = _ssd_bounds(shape, dname)
+    fns = {
+        "ssd_fwd": (lambda: ssd.ssd_fwd(*args, return_states=True),
+                    lambda: ref.ssd_fwd_ref(*args, chunk=ssd.CHUNK,
+                                            return_states=True)),
+        "ssd_bwd": (lambda: ssd.ssd_bwd(*args, st, dyp),
+                    lambda: ref.ssd_bwd_ref(*args, st_r, dyp,
+                                            chunk=ssd.CHUNK)),
+    }
+    timing = {}
+    for name, (kern, plain_fn) in fns.items():
+        # no single PyTorch call computes the SSD scan: library_ms null
+        timing[name] = {"ms": cuda_time(kern, iters=10),
+                        "plain_ms": cuda_time(plain_fn, iters=3),
+                        "library_ms": None, **bounds[name]}
+    row["timing"] = timing
+    log("parity", **row)
+    abs_errs = {"ssd_fwd": max(row["max_abs_err"][n]
+                               for n in ("y", "states")),
+                "ssd_bwd": max(row["max_abs_err"][n] for n in
+                               ("dx", "ddt", "dda", "dbh", "dch"))}
+    return abs_errs, timing
+
+
 def phase_parity():
     import numpy as np
     import torch
@@ -483,11 +677,22 @@ def phase_parity():
     # one kv head, bf16, half the rows empty (the case whose per-row
     # error read NaN before the metric's floor skipped zero rows)
     decode_case("one kv head bf16", 2, 6, 1, 77, 64, bf16, [0, 77], False)
+    # zamba2-7b: the shared block's attention (32 heads of 112) and the
+    # SSD at one layer's shape (112 heads, P = N = 64); a ragged S at the
+    # reduced config's P 128, N 16; bf16 inputs
+    parity_case("zamba2-7b shared block", (1, 32, SEQ, 112), bf16, True, 0,
+                True)
+    parity_case("ragged-f32 D=112", (1, 4, 1000, 112), f32, True, 0, False)
+    ssd_main = ssd_case("zamba2-7b", (1, SEQ, 112, 64, 64), f32, True)
+    ssd_case("ragged S, P 128, N 16", (2, 1000, 4, 128, 16), f32, False)
+    ssd_case("zamba2-7b bf16 inputs", (1, SEQ, 112, 64, 64), bf16, False)
     errs, timing = main
     errs = dict(errs, flash_decode=dec[0]["flash_decode"],
-                flash_decode_paged=dec_p[0]["flash_decode_paged"])
+                flash_decode_paged=dec_p[0]["flash_decode_paged"],
+                **ssd_main[0])
     timing = dict(timing, flash_decode=dec[1]["flash_decode"],
-                  flash_decode_paged=dec_p[1]["flash_decode_paged"])
+                  flash_decode_paged=dec_p[1]["flash_decode_paged"],
+                  **ssd_main[1])
     return errs, timing
 
 
@@ -495,14 +700,16 @@ def phase_parity():
 # phase 3: solo run through the executor
 # ---------------------------------------------------------------------- #
 def _reset_all():
-    from repro_torch.kernels import flash_attention, flash_decode
+    from repro_torch.kernels import flash_attention, flash_decode, ssd
     flash_attention.reset_launches()
     flash_decode.reset_launches()
+    ssd.reset_launches()
 
 
 def _launches() -> dict:
-    from repro_torch.kernels import flash_attention, flash_decode
-    return {**flash_attention.LAUNCHES, **flash_decode.LAUNCHES}
+    from repro_torch.kernels import flash_attention, flash_decode, ssd
+    return {**flash_attention.LAUNCHES, **flash_decode.LAUNCHES,
+            **ssd.LAUNCHES}
 
 
 def _expect_launches(phase: str, expected: dict) -> dict:
@@ -614,6 +821,8 @@ def phase_pair(iters: int = 2):
 # phase 5: where a step's device time goes
 # ---------------------------------------------------------------------- #
 def _category(kernel: str) -> str:
+    if "ssd_fwd_kernel" in kernel or "ssd_bwd_kernel" in kernel:
+        return "SSD (port kernels)"
     if "flash_fwd_kernel" in kernel or "flash_bwd_" in kernel:
         return "attention (port kernels)"
     low = kernel.lower()
@@ -622,51 +831,162 @@ def _category(kernel: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def phase_profile():
-    """One profiled step per model at s = 4 after a warm-up step: device
+def _profile_step(phase: str, cfg):
+    """One profiled step of ``cfg`` at s = 4 after a warm-up step: device
     time by kernel category and the device's busy share of the step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
     from repro_torch.launch.cluster import JobSpec, ScheduleExecutor
     from repro_torch.models import param_count
+    ex = ScheduleExecutor()
+    spec = JobSpec(cfg, batch=BATCH, accum_steps=4, seq=SEQ, seed=0)
+    ex.submit(cfg.name, spec, steps=2)
+    ex.start(cfg.name)
+    n_params = param_count(ex.runs[cfg.name].params)
+    ex.step_group([cfg.name])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = ex.step_group([cfg.name])
+    by_cat, top = {}, []
+    for e in prof.key_averages():
+        # kernels only: a host op also reports its kernels' time
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = e.self_device_time_total / 1e3          # us -> ms
+        cat = _category(e.key)
+        by_cat[cat] = by_cat.get(cat, 0.0) + t
+        top.append((t, e.key[:90], e.count))
+    top.sort(reverse=True)
+    device_ms = sum(by_cat.values())
+    wall_ms = res["walltime"] * 1e3
+    log(phase, profile=True, model=cfg.name, n_layers=cfg.n_layers,
+        params=n_params, accum_steps=4, step_wall_ms=wall_ms,
+        device_ms=device_ms if device_ms else "not measured",
+        busy_share=device_ms / wall_ms if device_ms else "not measured",
+        by_category_ms=by_cat,
+        top_kernels=[{"ms": t, "name": n, "calls": c}
+                     for t, n, c in top[:8]])
+    del ex
+    torch.cuda.empty_cache()
+
+
+def phase_profile():
+    from repro_torch.configs import get_config
     for name in ("minicpm-2b", "qwen2-vl-2b"):
-        ex = ScheduleExecutor()
-        spec = JobSpec(get_config(name), batch=BATCH, accum_steps=4,
-                       seq=SEQ, seed=0)
-        ex.submit(name, spec, steps=2)
-        ex.start(name)
-        n_params = param_count(ex.runs[name].params)
-        ex.step_group([name])
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            res = ex.step_group([name])
-        by_cat, top = {}, []
-        for e in prof.key_averages():
-            # kernels only: a host op also reports its kernels' time
-            if e.device_type != DeviceType.CUDA:
-                continue
-            t = e.self_device_time_total / 1e3          # us -> ms
-            cat = _category(e.key)
-            by_cat[cat] = by_cat.get(cat, 0.0) + t
-            top.append((t, e.key[:90], e.count))
-        top.sort(reverse=True)
-        device_ms = sum(by_cat.values())
-        wall_ms = res["walltime"] * 1e3
-        log("profile", model=name, params=n_params, accum_steps=4,
-            step_wall_ms=wall_ms,
-            device_ms=device_ms if device_ms else "not measured",
-            busy_share=device_ms / wall_ms if device_ms else "not measured",
-            by_category_ms=by_cat,
-            top_kernels=[{"ms": t, "name": n, "calls": c}
-                         for t, n, c in top[:8]])
-        del ex
-        torch.cuda.empty_cache()
+        _profile_step("profile", get_config(name))
 
 
 # ---------------------------------------------------------------------- #
-# phase 6: accumulated == full batch on the card
+# phase 6: the hybrid family through the executor
+# ---------------------------------------------------------------------- #
+def _expect_hybrid(cfg, micro: int) -> dict:
+    # remat per unit: each micro-batch runs every unit's forward twice
+    # (its Mamba2 layers' SSD and the shared block's attention) and its
+    # backward once
+    return {"ssd_fwd": 2 * cfg.n_layers * micro,
+            "ssd_bwd": cfg.n_layers * micro,
+            "flash_fwd": 2 * cfg.n_units * micro,
+            "flash_bwd_dq": cfg.n_units * micro,
+            "flash_bwd_dkdv": cfg.n_units * micro}
+
+
+def phase_hybrid(iters: int = 2):
+    """zamba2-7b at full width, ``HYBRID_LAYERS`` of its 81 layers, bf16,
+    through ``ScheduleExecutor``: 2 steps at s = 4, a reconfig to s = 2
+    (1 step), one ragged step (B = 5, b = 2, s = 3), with launch counts
+    equal to layers x micro-batches; then ``measure_pair`` with
+    qwen2-vl-2b at s = 4, and one profiled step."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.coschedule import measure_pair
+    from repro_torch.data import make_batch
+    from repro_torch.launch.cluster import JobSpec, ScheduleExecutor
+    from repro_torch.models import param_count
+    full = get_config("zamba2-7b")
+    cfg = dataclasses.replace(full, n_layers=HYBRID_LAYERS)
+    ex = ScheduleExecutor()
+    ex.submit("zamba", JobSpec(cfg, batch=BATCH, seq=SEQ, seed=0), steps=3)
+    ex.start("zamba", sub_batch=1)
+    log("hybrid", config=cfg.name, family=cfg.family, d_model=cfg.d_model,
+        n_layers=cfg.n_layers, of_layers=full.n_layers, units=cfg.n_units,
+        layers_per_unit=cfg.pattern_unit(), ssm_heads=cfg.n_ssm_heads,
+        head_p=cfg.d_inner // cfg.n_ssm_heads, ssm_state=cfg.ssm_state,
+        attn_heads=cfg.n_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+        vocab=cfg.vocab, dtype=cfg.dtype,
+        params=param_count(ex.runs["zamba"].params),
+        reduced=f"depth {full.n_layers} -> {cfg.n_layers} layers "
+                f"({cfg.n_units} of {full.n_units} units); widths as "
+                f"published", seq=SEQ, batch=BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    micro = 0
+    for sub, n in ((None, 2), (2, 1)):      # (reconfig sub-batch, steps)
+        if sub is not None:
+            ex.reconfigure("zamba", sub)
+        run = ex.runs["zamba"]
+        for _ in range(n):
+            res = ex.step_group(["zamba"])
+            loss = res["losses"]["zamba"]
+            _check_loss("hybrid", loss)
+            micro += run.accum_steps
+            log("hybrid", job="zamba", step=run.steps_done,
+                sub_batch=run.sub_batch, accum_steps=run.accum_steps,
+                loss=loss, walltime_s=res["walltime"])
+    run = ex.runs["zamba"]
+    state = (run.params, run.opt,
+             make_batch(cfg, 5, SEQ, seed=0, device="cuda"))
+    ex.finish("zamba")
+    ex.submit("zamba-ragged", JobSpec(cfg, batch=5, seq=SEQ, seed=0),
+              steps=1)
+    ex.start("zamba-ragged", sub_batch=2, state=state)
+    del state, run
+    res = ex.step_group(["zamba-ragged"])
+    ragged = ex.runs["zamba-ragged"]
+    loss = res["losses"]["zamba-ragged"]
+    _check_loss("hybrid", loss)
+    micro += ragged.accum_steps
+    log("hybrid", job="zamba-ragged", step=ragged.steps_done, batch=5,
+        sub_batch=ragged.sub_batch, accum_steps=ragged.accum_steps,
+        loss=loss, walltime_s=res["walltime"])
+    ex.finish("zamba-ragged")
+    if micro != 2 * 4 + 2 + 3:
+        raise AssertionError(f"hybrid: {micro} micro-batches, expected 13")
+    launches = _expect_launches("hybrid", _expect_hybrid(cfg, micro))
+    log("hybrid", summary=True, micro_batches=micro, launches=launches,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del ex, ragged
+    torch.cuda.empty_cache()
+
+    # the pair with qwen2-vl-2b: solo a, solo b, then the pair, each
+    # (iters + 1) steps with the warm-up
+    cfg_b = get_config("qwen2-vl-2b")
+    s = 4
+    spec_a = JobSpec(cfg, batch=BATCH, accum_steps=s, seq=SEQ, seed=0)
+    spec_b = JobSpec(cfg_b, batch=BATCH, accum_steps=s, seq=SEQ, seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    r = measure_pair(spec_a, spec_b, iters=iters)
+    steps = (iters + 1) * 2
+    want = _expect_hybrid(cfg, steps * s)
+    for key, n in _expect(cfg_b.n_layers, steps * s).items():
+        want[key] += n
+    pair_launches = _expect_launches("hybrid pair", want)
+    for key in ("t_a_solo", "t_b_solo", "t_pair"):
+        if not (math.isfinite(r[key]) and r[key] > 0):
+            raise AssertionError(f"hybrid pair: {key} = {r[key]}")
+    log("hybrid", pair=True, a=f"{cfg.name}@{cfg.n_layers}",
+        b="qwen2-vl-2b", accum_steps=s, **r, launches=pair_launches,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    torch.cuda.empty_cache()
+    _profile_step("hybrid", cfg)
+    return launches
+
+
+# ---------------------------------------------------------------------- #
+# phase 7: accumulated == full batch on the card
 # ---------------------------------------------------------------------- #
 def phase_accum():
     import dataclasses
@@ -679,9 +999,12 @@ def phase_accum():
     from repro_torch.tree import flatten
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for name in ("minicpm-2b", "qwen2-vl-2b"):
+    for name, n_layers in (("minicpm-2b", None), ("qwen2-vl-2b", None),
+                           ("zamba2-7b", 9), ("zamba2-7b", 18)):
         cfg = dataclasses.replace(get_config(name).reduced(),
                                   dtype="float32")
+        if n_layers:                  # the hybrid's 1- and 2-unit variants
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
         params = init_params(cfg, 0)
         lg = make_loss_and_grad(cfg, TrainConfig())
         for batch_size, steps in ((8, 4), (5, 3)):
@@ -695,14 +1018,15 @@ def phase_accum():
                 worst = max(worst, float((a - b).abs().max()))
             torch.testing.assert_close(loss_acc, loss_full, rtol=1e-5,
                                        atol=1e-6)
-            log("accum", model=cfg.name, batch=batch_size,
+            log("accum", model=cfg.name, n_layers=cfg.n_layers,
+                batch=batch_size,
                 accum_steps=steps, loss_full=float(loss_full),
                 loss_acc=float(loss_acc), max_abs_grad_diff=worst,
                 rtol=5e-4, atol=5e-6)
 
 
 # ---------------------------------------------------------------------- #
-# phase 7: serving through generate
+# phase 8: serving through generate
 # ---------------------------------------------------------------------- #
 def phase_serve():
     """minicpm-2b at full width, bf16: batch 4, 1024-token prompts, 64
@@ -803,7 +1127,7 @@ def _profile_decode(cfg, params, prompt, steps: int = 8):
 
 
 # ---------------------------------------------------------------------- #
-# phase 8: the continuous-batching engine
+# phase 9: the continuous-batching engine
 # ---------------------------------------------------------------------- #
 def _engine_requests(cfg):
     """16 prompts: a shared 1024-token system prefix plus 256-1024 tokens
@@ -1027,6 +1351,8 @@ def main() -> int:
     launches = dict(phase_solo())
     phase_pair()
     phase_profile()
+    hybrid = phase_hybrid()
+    launches.update(ssd_fwd=hybrid["ssd_fwd"], ssd_bwd=hybrid["ssd_bwd"])
     phase_accum()
     launches["flash_decode"] = phase_serve()["flash_decode"]
     launches["flash_decode_paged"] = phase_engine()["flash_decode_paged"]

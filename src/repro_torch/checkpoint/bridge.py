@@ -27,16 +27,14 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
-def params_from_numpy(flat: Dict[str, np.ndarray], *, dtype=None,
-                      device=None) -> Dict:
+def params_from_numpy(flat: Dict[str, np.ndarray], *, device=None) -> Dict:
     """Reference-flattened numpy arrays -> the port's nested parameter
-    dict on ``device``, cast to ``dtype`` when given."""
+    dict on ``device``. Each leaf keeps the dtype of its reference array,
+    so the f32 leaves of a bf16 model (a hybrid's ``A_log``, ``dt_bias``,
+    ``D``) stay f32, as they do in the reference."""
     dev = resolve_device(device)
-    out = {}
-    for key, arr in flat.items():
-        t = _to_tensor(np.asarray(arr))
-        out[key] = t.to(device=dev, dtype=dtype or t.dtype)
-    return unflatten(out)
+    return unflatten({key: _to_tensor(np.asarray(arr)).to(dev)
+                      for key, arr in flat.items()})
 
 
 def params_to_numpy(params, *, prefix: str = "") -> Dict[str, np.ndarray]:

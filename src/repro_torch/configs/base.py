@@ -2,8 +2,8 @@
 
 The fields and ``reduced()`` match the reference field for field, so a
 reduced config here has the same shapes as the reference's reduced config.
-``get_config`` knows only the families the port runs so far (dense and
-vlm); the others raise and name the slice that brings them.
+``get_config`` knows only the architectures the port runs so far (dense,
+vlm and hybrid); the others raise and name the slice that brings them.
 """
 from __future__ import annotations
 
@@ -136,11 +136,11 @@ class ArchConfig:
 _REGISTRY: Dict[str, str] = {
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 # architectures of the reference that later slices of the port bring
 _LATER: Dict[str, str] = {
-    "zamba2-7b": "the hybrid slice (SSD kernels)",
     "glm4-9b": "the remaining-families slice",
     "llama4-maverick-400b-a17b": "the remaining-families slice",
     "xlstm-1.3b": "the remaining-families slice",

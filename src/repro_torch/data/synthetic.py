@@ -17,10 +17,11 @@ def make_batch(cfg: ArchConfig, batch: int, seq: int, *, step: int = 0,
                seed: int = 0, dtype=None, device=None
                ) -> Dict[str, torch.Tensor]:
     """One training batch: tokens (B,S) int64, labels = next token, and
-    ``vision_embeds`` (B, vision_tokens, d_model) for the vlm family."""
+    ``vision_embeds`` (B, vision_tokens, d_model) for the vlm family
+    (dense and hybrid take tokens only)."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet")
     rng = np.random.default_rng(seed * 1_000_003 + step)

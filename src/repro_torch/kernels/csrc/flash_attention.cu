@@ -5,7 +5,7 @@
 //   flash_bwd_dq_kernel   <- _flash_bwd_dq_kernel   (first pallas_call in flash_attention_bwd)
 //   flash_bwd_dkdv_kernel <- _flash_bwd_dkdv_kernel (second pallas_call in flash_attention_bwd)
 //
-// What bounds them. At the training shapes (S = 2048, D = 64 or 128) each
+// What bounds them. At the training shapes (S = 2048, D = 64, 112 or 128) each
 // kernel does O(S^2 D) arithmetic on O(S D) bytes: hundreds of operations
 // per byte, far above the H100's ~295 bf16 operations per byte of device
 // memory, so the bound is arithmetic. The card's bf16 rate lives in the
@@ -488,12 +488,16 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, cons
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. Anything else
+// dtype: 0 = float32, 1 = bfloat16. head_dim: 64, 112 (zamba2's shared
+// block) or 128; every loop over D steps by one or by 16 (NJ = D / 16
+// columns a thread), so D only has to be a multiple of 16. Anything else
 // returns cudaErrorInvalidValue without launching.
 #define DISPATCH(FN, ...)                                                  \
   if (dtype == 0 && d == 64) return FN<float, 64>(__VA_ARGS__);            \
+  if (dtype == 0 && d == 112) return FN<float, 112>(__VA_ARGS__);          \
   if (dtype == 0 && d == 128) return FN<float, 128>(__VA_ARGS__);          \
   if (dtype == 1 && d == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);    \
+  if (dtype == 1 && d == 112) return FN<__nv_bfloat16, 112>(__VA_ARGS__);  \
   if (dtype == 1 && d == 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__);  \
   return (int)cudaErrorInvalidValue;
 

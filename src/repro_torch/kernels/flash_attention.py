@@ -2,11 +2,12 @@
 ``csrc/flash_attention.cu`` (forward, dQ, dK/dV) and the
 ``torch.autograd.Function`` that joins them.
 
-Layout is the kernels' (B, H, S, D), contiguous, bf16 or f32, head_dim 64
-or 128. Each wrapper routes on the device of the tensor it is given: a CPU
-tensor takes the plain PyTorch version (``ref.py``); a CUDA tensor
-launches the kernel or raises, never falls back. ``LAUNCHES`` counts the
-kernel launches of each wrapper, and only those.
+Layout is the kernels' (B, H, S, D), contiguous, bf16 or f32, head_dim
+64, 112 (zamba2-7b's shared block) or 128. Each wrapper routes on the
+device of the tensor it is given: a CPU tensor takes the plain PyTorch
+version (``ref.py``); a CUDA tensor launches the kernel or raises, never
+falls back. ``LAUNCHES`` counts the kernel launches of each wrapper, and
+only those.
 
 Replaces the reference's ``kernels/flash_attention.py``
 (``flash_attention_fwd`` / ``flash_attention_bwd`` and their
@@ -24,7 +25,7 @@ from .ref import (attention_bwd_dkdv_ref, attention_bwd_dq_ref,
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkdv": 0}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

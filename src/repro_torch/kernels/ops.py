@@ -1,15 +1,17 @@
-"""Model-layout entry to the attention kernels (the reference's
-``kernels/ops.py``). Routing is by the tensor's device inside each kernel
-wrapper: CUDA launches the kernel, CPU takes the plain version. Tiles are
-fixed (flash attention 64 x 64; decode one block per (batch, head)): the
-reference's block sizes and its autotuned routing (``autotune.DEFAULTS``,
-``_resolve``) are TPU choices, and autotuning is a later slice."""
+"""Model-layout entry to the kernels (the reference's ``kernels/ops.py``).
+Routing is by the tensor's device inside each kernel wrapper: CUDA
+launches the kernel, CPU takes the plain version. Tiles are fixed (flash
+attention 64 x 64; decode one block per (batch, head); the SSD chunk 64,
+one block per (batch, head)): the reference's block sizes and its
+autotuned routing (``autotune.DEFAULTS``, ``_resolve``) are TPU choices,
+and autotuning is a later slice."""
 from __future__ import annotations
 
 import torch
 
 from . import flash_attention as _flash
 from . import flash_decode as _decode
+from . import ssd as _ssd
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -47,3 +49,9 @@ def flash_decode_paged(q, k_pool, v_pool, pages, lengths):
     page table (-1 = unassigned); lengths: (B,) valid rows. Not
     differentiable (serving only)."""
     return _decode.flash_decode_paged(q, k_pool, v_pool, pages, lengths)
+
+
+def ssd(x, dt, A, Bm, Cm):
+    """Mamba2 SSD: x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N) ->
+    y (B,S,H,P). Differentiable in all five operands; any S."""
+    return _ssd.ssd(x, dt, A, Bm, Cm)

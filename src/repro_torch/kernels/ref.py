@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the attention kernels (the reference's
+"""Plain PyTorch versions of the kernels (the reference's
 ``kernels/ref.py``: ``attention_ref`` plus the backward the Pallas kernels
-compute, ``flash_decode_ref`` and ``flash_decode_paged_ref``).
+compute, ``flash_decode_ref`` and ``flash_decode_paged_ref``; ``ssd_ref``
+plus the chunked forward and backward the SSD kernels compute).
 Deliberately naive: full score matrices, f32 throughout.
 
 They take the kernels' (B, H, S, D) layout and masking (``score_mask``,
@@ -120,3 +121,149 @@ def flash_decode_paged_ref(q, k_pool, v_pool, pages, lengths):
         k = torch.repeat_interleave(k, groups, dim=2)
         v = torch.repeat_interleave(v, groups, dim=2)
     return flash_decode_ref(q, k, v, lengths)
+
+
+# ---------------------------------------------------------------------- #
+# Mamba2 SSD
+# ---------------------------------------------------------------------- #
+def _wide(t: torch.Tensor) -> torch.dtype:
+    """f32 arithmetic, or f64 when the caller hands in f64 (the tests'
+    oracle)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def ssd_ref(x, dt, A, Bm, Cm):
+    """Sequential Mamba2/SSD recurrence (the obviously-correct oracle).
+
+    x: (B,S,H,P), dt: (B,S,H), A: (H,) (<0), Bm/Cm: (B,S,N).
+    h_t = exp(A*dt_t) h_{t-1} + dt_t * x_t (outer) B_t ;  y_t = C_t . h_t
+    Returns y (B,S,H,P) in x's dtype."""
+    wide = _wide(x)
+    b, s, h, p = x.shape
+    xw, dtw, bw, cw = (t.to(wide) for t in (x, dt, Bm, Cm))
+    aw = A.to(wide)
+    state = torch.zeros((b, h, p, Bm.shape[-1]), dtype=wide, device=x.device)
+    ys = []
+    for t in range(s):
+        da = torch.exp(aw[None, :] * dtw[:, t])                  # (b,h)
+        state = da[..., None, None] * state + torch.einsum(
+            "bh,bn,bhp->bhpn", dtw[:, t], bw[:, t], xw[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cw[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def _ssd_chunks(x, dt, A, Bm, Cm, chunk: int):
+    """Inputs cut into chunks in the arithmetic type: lists over chunks of
+    x (b,L,h,p), dt and dA = A dt (b,L,h), Bm/Cm (b,L,n)."""
+    b, s, h, p = x.shape
+    if s % chunk:
+        raise ValueError(f"S = {s} is not a multiple of the chunk {chunk}")
+    wide = _wide(x)
+    dtw = dt.to(wide)
+    dA = A.to(wide)[None, None, :] * dtw
+    return [t.to(wide).split(chunk, dim=1) for t in (x, dtw, dA, Bm, Cm)]
+
+
+def _chunk_fwd(xc, dtc, dAc, bc, cc):
+    """Forward intermediates of one chunk (the kernel's recompute): cum,
+    total, the masked decay, scores, m = scores * decay."""
+    L = xc.shape[1]
+    cum = torch.cumsum(dAc, dim=1)                               # (b,L,h)
+    total = cum[:, -1]                                           # (b,h)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=xc.device))
+    # mask the exponent before exp: i < j entries are exp of a positive
+    diff = cum[:, :, None, :] - cum[:, None, :, :]               # (b,i,j,h)
+    decay = torch.exp(torch.where(causal[None, :, :, None], diff,
+                                  torch.full_like(diff, float("-inf"))))
+    scores = torch.einsum("bin,bjn->bij", cc, bc)
+    return cum, total, decay, scores, scores[..., None] * decay
+
+
+def ssd_fwd_ref(x, dt, A, Bm, Cm, *, chunk: int, return_states=False):
+    """The SSD chunk scan at an explicit ``chunk`` (S a multiple of it):
+    x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N) -> y (B,S,H,P) in x's
+    dtype [, each chunk's input state (B,H,nc,P,N) in the arithmetic
+    type: f32, or f64 for f64 inputs]. What the
+    forward kernel computes, in the reference's ``_ssd_kernel`` order."""
+    b, _, h, p = x.shape
+    xs, dts, dAs, bs, cs = _ssd_chunks(x, dt, A, Bm, Cm, chunk)
+    state = torch.zeros((b, h, p, Bm.shape[-1]), dtype=xs[0].dtype,
+                        device=x.device)
+    ys, states = [], []
+    for xc, dtc, dAc, bc, cc in zip(xs, dts, dAs, bs, cs):
+        states.append(state)
+        cum, total, _, _, m = _chunk_fwd(xc, dtc, dAc, bc, cc)
+        y_intra = torch.einsum("bijh,bjhp->bihp", m, xc * dtc[..., None])
+        y_inter = torch.einsum("bin,bhpn->bihp", cc, state) \
+            * torch.exp(cum)[..., None]
+        w = torch.exp(total[:, None] - cum) * dtc                # (b,L,h)
+        s_local = torch.einsum("blhp,bln->bhpn", xc * w[..., None], bc)
+        state = torch.exp(total)[..., None, None] * state + s_local
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1).to(x.dtype)
+    if return_states:
+        return y, torch.stack(states, dim=2)
+    return y
+
+
+def ssd_bwd_ref(x, dt, A, Bm, Cm, states, dy, *, chunk: int):
+    """The reverse-chunk SSD backward (the reference's ``_ssd_bwd_kernel``
+    math) carrying d(state) from the last chunk to the first. Inputs as
+    ``ssd_fwd_ref`` plus its ``states`` and the cotangent dy (B,S,H,P).
+    Returns the kernel's raw outputs: dx (B,S,H,P) in x's dtype; ddt (the
+    direct part), d(dA) (B,S,H) and the per-head dB, dC partials
+    (B,S,H,N), all in the arithmetic type (f32; f64 for f64 inputs).
+    ``ssd.combine_grads`` finishes the chain rule."""
+    xs, dts, dAs, bs, cs = _ssd_chunks(x, dt, A, Bm, Cm, chunk)
+    dys = dy.to(xs[0].dtype).split(chunk, dim=1)
+    s0s = states.to(xs[0].dtype).unbind(2)
+    ds1 = torch.zeros_like(s0s[0])                       # d(final state)
+    outs = []
+    for c in reversed(range(len(xs))):
+        xc, dtc, dAc, bc, cc, s0, dyc = (xs[c], dts[c], dAs[c], bs[c],
+                                         cs[c], s0s[c], dys[c])
+        cum, total, decay, scores, m = _chunk_fwd(xc, dtc, dAc, bc, cc)
+        xdt = xc * dtc[..., None]
+        expcum = torch.exp(cum)
+        etc = torch.exp(total[:, None] - cum)
+        w = etc * dtc
+        et = torch.exp(total)
+        # state update: state_out = exp(total) s0 + (x w)^T B
+        ds0 = et[..., None, None] * ds1
+        dtotal = et * (ds1 * s0).sum(dim=(-2, -1))               # (b,h)
+        g = torch.einsum("blhp,bhpn->blhn", xc, ds1)
+        db = w[..., None] * g
+        dxw = torch.einsum("bln,bhpn->blhp", bc, ds1)
+        dx = w[..., None] * dxw
+        dw = (xc * dxw).sum(dim=-1)                              # (b,L,h)
+        ddt = dw * etc
+        dcum = -(dw * w)
+        dtotal = dtotal + (dw * w).sum(dim=1)
+        # inter-chunk: y_inter = (C s0^T) exp(cum)
+        dyec = dyc * expcum[..., None]
+        y_inter = torch.einsum("bin,bhpn->bihp", cc, s0) * expcum[..., None]
+        dc = torch.einsum("bihp,bhpn->bihn", dyec, s0)
+        ds0 = ds0 + torch.einsum("bihp,bin->bhpn", dyec, cc)
+        dcum = dcum + (dyc * y_inter).sum(dim=-1)
+        # intra-chunk: y_intra = (scores * decay) @ (x dt)
+        dm = torch.einsum("bihp,bjhp->bijh", dyc, xdt)
+        dxdt = torch.einsum("bijh,bihp->bjhp", m, dyc)
+        dscores = dm * decay
+        dc = dc + torch.einsum("bijh,bjn->bihn", dscores, bc)
+        db = db + torch.einsum("bijh,bin->bjhn", dscores, cc)
+        ddiff = dm * scores[..., None] * decay   # masked: decay 0 -> 0
+        dcum = dcum + ddiff.sum(dim=2) - ddiff.sum(dim=1)
+        dx = dx + dxdt * dtc[..., None]
+        ddt = ddt + (dxdt * xc).sum(dim=-1)
+        # total = cum[-1], cum = cumsum(dA): d(dA) is the inclusive
+        # suffix sum of dcum
+        dcum = torch.cat([dcum[:, :-1], dcum[:, -1:] + dtotal[:, None]],
+                         dim=1)
+        csum = torch.cumsum(dcum, dim=1)
+        dda = csum[:, -1:] - csum + dcum
+        outs.append((dx, ddt, dda, db, dc))
+        ds1 = ds0
+    dx, ddt, dda, db, dc = (torch.cat(parts[::-1], dim=1)
+                            for parts in zip(*outs))
+    return dx.to(x.dtype), ddt, dda, db, dc

@@ -78,7 +78,7 @@ class DecodeEngine:
                  n_pages: Optional[int] = None, prefix_share: bool = False,
                  retain_pages: Optional[int] = None, debug: bool = False,
                  clock=time.monotonic, brownout_depth: int = 0):
-        _require_ported(cfg)
+        _require_ported(cfg, serving=True)
         if prefix_share and not paged:
             raise ValueError("prefix_share requires paged=True")
         self.cfg, self.params = cfg, params

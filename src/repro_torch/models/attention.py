@@ -24,11 +24,14 @@ from .layers import apply_rope, linear, normal_init
 
 def attention_init(gen, d_model, n_heads, n_kv_heads, head_dim, *,
                    n_units, qkv_bias=False, dtype, device):
-    """Stacked (n_units, d_in, d_out) projections, std 0.02."""
+    """Stacked (n_units, d_in, d_out) projections, std 0.02; unstacked
+    (d_in, d_out) for ``n_units=None`` (the hybrid's shared block)."""
+    lead = () if n_units is None else (n_units,)
+
     def lin(d_in, d_out, bias):
-        p = {"w": normal_init(gen, (n_units, d_in, d_out), dtype, device)}
+        p = {"w": normal_init(gen, lead + (d_in, d_out), dtype, device)}
         if bias:
-            p["b"] = torch.zeros((n_units, d_out), dtype=dtype,
+            p["b"] = torch.zeros(lead + (d_out,), dtype=dtype,
                                  device=device)
         return p
 

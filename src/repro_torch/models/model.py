@@ -1,6 +1,8 @@
-"""LM assembly for the dense and vlm families (the reference's
+"""LM assembly for the dense, vlm and hybrid families (the reference's
 ``models/model.py``), with the reference's parameter layout: every
-per-layer weight is stacked with a leading ``n_units`` dimension.
+per-layer weight is stacked with a leading ``n_units`` dimension; the
+hybrid's Mamba2 layers carry a second, (n_units, layers per unit, ...),
+and its one shared attention block is not stacked.
 
 Public API (params are plain nested dicts of tensors):
     init_params(cfg, seed, dtype, device) -> params
@@ -9,7 +11,8 @@ Public API (params are plain nested dicts of tensors):
     prefill / prefill_extend / decode_step (serving)
 
 Other families raise ``NotImplementedError`` naming the slice that brings
-them. The reference's sharding constraints are no-ops on one device and
+them; so does serving a hybrid, which trains here but serves in a later
+slice. The reference's sharding constraints are no-ops on one device and
 are left out.
 """
 from __future__ import annotations
@@ -24,21 +27,32 @@ from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.tree import unit_slice
 
 from . import attention as attn_mod
+from . import ssm as ssm_mod
 from .layers import (embed, linear, mrope_cos_sin, normal_init, rms_norm,
                      rope_cos_sin, swiglu, unembed)
 
-PORTED_FAMILIES = ("dense", "vlm")
-_LATER = {"hybrid": "the hybrid slice (SSD kernels)",
+TRAIN_FAMILIES = ("dense", "vlm", "hybrid")
+SERVE_FAMILIES = ("dense", "vlm")
+_LATER = {"hybrid": "the hybrid-serving slice (mamba2_prefill, "
+                    "mamba2_decode)",
           "moe": "the remaining-families slice",
           "ssm": "the remaining-families slice",
           "audio": "the remaining-families slice"}
 
 
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
+def _require_ported(cfg: ArchConfig, *, serving: bool = False) -> None:
+    families = SERVE_FAMILIES if serving else TRAIN_FAMILIES
+    if cfg.family not in families:
+        what = "for serving " if cfg.family in TRAIN_FAMILIES else ""
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; it "
-            f"comes with {_LATER.get(cfg.family, 'a later slice')}")
+            f"family {cfg.family!r} ({cfg.name}) is not ported {what}yet; "
+            f"it comes with {_LATER.get(cfg.family, 'a later slice')}")
+
+
+def layered_units(cfg: ArchConfig) -> Tuple[str, ...]:
+    """The unit subtrees whose leaves stack the unit's layers a second
+    time, (n_units, layers per unit, ...): the hybrid's Mamba2 layers."""
+    return ("mamba",) if cfg.family == "hybrid" else ()
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None
@@ -56,22 +70,33 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=dev)
 
-    def lin(d_in, d_out):
-        return {"w": normal_init(gen, (n, d_in, d_out), dt, dev)}
-
-    params = {
-        "embed": {"table": normal_init(gen, (cfg.vocab, d), dt, dev)},
-        "units": {
-            "ln1": {"scale": ones(n, d)},
+    def attn_block(lead):
+        def lin(d_in, d_out):
+            return {"w": normal_init(gen, lead + (d_in, d_out), dt, dev)}
+        return {
+            "ln1": {"scale": ones(*lead, d)},
             "attn": attn_mod.attention_init(
                 gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                n_units=n, qkv_bias=cfg.qkv_bias, dtype=dt, device=dev),
-            "ln2": {"scale": ones(n, d)},
+                n_units=lead[0] if lead else None, qkv_bias=cfg.qkv_bias,
+                dtype=dt, device=dev),
+            "ln2": {"scale": ones(*lead, d)},
             "mlp": {"gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff),
                     "down": lin(cfg.d_ff, d)},
-        },
-        "ln_f": {"scale": ones(d)},
-    }
+        }
+
+    params = {"embed": {"table": normal_init(gen, (cfg.vocab, d), dt, dev)},
+              "ln_f": {"scale": ones(d)}}
+    if cfg.family == "hybrid":     # zamba2: u Mamba2 layers (+ shared attn)
+        lead = (n, cfg.pattern_unit())
+        params["units"] = {"mamba": {
+            "ln": {"scale": ones(*lead, d)},
+            "mamba": ssm_mod.mamba2_init(
+                gen, d, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
+                cfg.ssm_conv, lead=lead, dtype=dt, device=dev)}}
+        if cfg.attn_every:
+            params["shared_attn"] = attn_block(())
+    else:
+        params["units"] = attn_block((n,))
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": normal_init(gen, (d, cfg.vocab), dt, dev)}
     return params
@@ -124,11 +149,30 @@ def _attn_block_fwd(p, cfg, x, cos, sin, window):
     return _mlp_block(p, cfg, x + h)
 
 
-def _make_unit_fwd(cfg: ArchConfig, cos, sin, window):
+def _layers(stack, n: int):
+    """The per-layer trees of a layer stack: its list of per-layer
+    gradient leaves (``tree.grad_leaves``), or views of the stacked
+    tensors."""
+    return stack if isinstance(stack, list) else [
+        unit_slice(stack, i) for i in range(n)]
+
+
+def _make_unit_fwd(cfg: ArchConfig, shared_attn, cos, sin, window):
     _require_ported(cfg)
+    if cfg.family != "hybrid":
+        def unit_fwd(x, p):
+            return _attn_block_fwd(p, cfg, x, cos, sin, window)
+        return unit_fwd
 
     def unit_fwd(x, p):
-        return _attn_block_fwd(p, cfg, x, cos, sin, window)
+        for lp in _layers(p["mamba"], cfg.pattern_unit()):
+            x = x + ssm_mod.mamba2_forward(
+                lp["mamba"], rms_norm(lp["ln"], x, cfg.norm_eps),
+                d_inner=cfg.d_inner, ssm_state=cfg.ssm_state,
+                n_heads=cfg.n_ssm_heads)
+        if shared_attn is not None:
+            x = _attn_block_fwd(shared_attn, cfg, x, cos, sin, window)
+        return x
     return unit_fwd
 
 
@@ -149,8 +193,8 @@ def _scan_units(x, units, n_units: int, unit_fwd, remat: bool):
 def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
             remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: {"tokens": (B,S) int [, "vision_embeds" (B,Tv,D)]} ->
-    (logits (B,S,V), aux). ``aux`` is 0: the dense and vlm families have
-    no auxiliary loss."""
+    (logits (B,S,V), aux). ``aux`` is 0: the dense, vlm and hybrid
+    families have no auxiliary loss."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -162,7 +206,8 @@ def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
 
     positions = torch.arange(s, device=tokens.device)
     cos, sin = _rope_tables(cfg, positions)
-    unit_fwd = _make_unit_fwd(cfg, cos, sin, cfg.sliding_window)
+    unit_fwd = _make_unit_fwd(cfg, params.get("shared_attn"), cos, sin,
+                              cfg.sliding_window)
     x = _scan_units(x, params["units"], cfg.n_units, unit_fwd, remat)
     x = rms_norm(params["ln_f"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -187,7 +232,7 @@ def _require_linear(cfg: ArchConfig) -> None:
     """Decode caches are linear (row t == position t). The reference's
     sliding-window ring buffer comes with the port's first windowed
     family; no family ported so far has a window."""
-    _require_ported(cfg)
+    _require_ported(cfg, serving=True)
     if cfg.sliding_window:
         raise ValueError(
             f"{cfg.name}: decode caches are linear; the sliding-window "

@@ -30,15 +30,14 @@ def _leading_dim(batch: Dict[str, torch.Tensor]) -> int:
 @torch.no_grad()
 def _add_into(acc, grads, weight=None) -> None:
     """acc += grads, or acc += f32(weight * grads) on the ragged path.
-    ``grads`` is flat, as ``loss_and_grad`` returns it: a stacked unit
-    weight's key maps to its list of per-unit gradients."""
+    ``grads`` is the list of (flat key, index, gradient) that
+    ``loss_and_grad`` returns: the index is None for a whole leaf, (u,)
+    for unit u of a stacked unit weight, or (u, i) for layer i of it."""
     fa = flatten(acc)
-    for key, g in grads.items():
-        pairs = (zip(fa[key].unbind(0), g) if isinstance(g, list)
-                 else [(fa[key], g)])
-        for t, gi in pairs:
-            gi = gi.float()
-            t.add_(gi if weight is None else gi * weight)
+    for key, index, g in grads:
+        t = fa[key] if index is None else fa[key][index]
+        g = g.float()
+        t.add_(g if weight is None else g * weight)
 
 
 def accumulate_gradients(
@@ -52,8 +51,8 @@ def accumulate_gradients(
     """Returns (mean loss, mean grads in ``accum_dtype``, shaped like
     ``params``) over the micro-batches of ``batch`` (a dict of tensors
     with a common leading dim B). ``loss_and_grad`` returns its gradients
-    flat (``tree.flatten`` keys), a stacked unit weight as a list of
-    per-unit gradients.
+    as a list of (``tree.flatten`` key, index, gradient), the index
+    selecting the slice of the stacked weight (``tree.grad_leaves``).
 
     ``accum_steps <= 1`` is one micro-batch through the same path: its
     gradients are cast to ``accum_dtype`` and scaled by 1.0, the same

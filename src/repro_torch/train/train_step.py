@@ -12,10 +12,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import forward
+from repro_torch.models.model import layered_units
 from repro_torch.tree import flatten, grad_leaves
 
 from .grad_accum import accumulate_gradients
-from .optimizer import OptState, adamw_update
+from .optimizer import OptState, _chunks, adamw_update
 
 
 @dataclass(frozen=True)
@@ -52,24 +53,22 @@ def loss_fn(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
 
 
 def make_loss_and_grad(cfg: ArchConfig, tc: TrainConfig = TrainConfig()):
-    """(params, micro_batch) -> (loss, flat grads), the function that
+    """(params, micro_batch) -> (loss, grads), the function that
     ``accumulate_gradients`` calls once per micro-batch. Gradients are
-    taken with respect to per-unit leaves (``tree.grad_leaves``), so a
-    stacked unit weight comes back as a list of per-unit gradients."""
+    taken with respect to the leaves of ``tree.grad_leaves`` and come
+    back as a list of (flat key, index, gradient): the index is None for
+    a whole leaf, (u,) for one unit of a stacked unit weight, or (u, i)
+    for one layer of a hybrid's Mamba2 stack."""
+    layered = layered_units(cfg)
 
     def lg(params, micro_batch):
-        split, slots = grad_leaves(params)
+        split, slots = grad_leaves(params, layered)
         loss, _ = loss_fn(cfg, split, micro_batch,
                           aux_loss_weight=tc.aux_loss_weight,
                           remat=tc.remat)
         grads = torch.autograd.grad(loss, [leaf for _, _, leaf in slots])
-        flat: Dict = {}
-        for (key, u, _), g in zip(slots, grads):
-            if u is None:
-                flat[key] = g
-            else:
-                flat.setdefault(key, [None] * cfg.n_units)[u] = g
-        return loss.detach(), flat
+        return loss.detach(), [(key, index, g) for (key, index, _), g
+                               in zip(slots, grads)]
 
     return lg
 
@@ -88,10 +87,14 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig = TrainConfig()):
         lr = tc.schedule if tc.schedule is not None else tc.lr
         params, opt_state = adamw_update(
             grads, opt_state, params, lr=lr, weight_decay=tc.weight_decay)
+        # f64 sums over chunks: the CPU's f32 vector_norm accumulates a
+        # large tensor naively (2.4e-4 off for a 2.4M-entry gradient), and
+        # a whole-tensor f64 cast would copy a multi-GB gradient
         with torch.no_grad():
             gnorm = torch.sqrt(sum(
-                torch.linalg.vector_norm(g.float()) ** 2
-                for g in flatten(grads).values()))
+                torch.linalg.vector_norm(c, dtype=torch.float64) ** 2
+                for g in flatten(grads).values()
+                for c in _chunks(g))).float()
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step

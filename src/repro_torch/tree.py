@@ -54,29 +54,44 @@ def unit_slice(units, u: int):
     return tree_map(lambda t: t[u], units)
 
 
-def grad_leaves(params) -> tuple:
+def grad_leaves(params, layered=()) -> tuple:
     """Fresh leaf tensors for one backward pass, sharing storage with
     ``params``: every non-unit tensor once, and every stacked unit tensor
-    as one leaf per unit. Returns (split tree for ``forward``, list of
-    (flat key, unit index or None, leaf)). Taking the gradient of per-unit
-    leaves avoids the full-size zero-padded gradient that slicing a
-    stacked leaf would build once per unit in the backward."""
+    as one leaf per unit, or, under a unit subtree named in ``layered``
+    (whose tensors stack the unit's layers a second time), one leaf per
+    (unit, layer). Returns (split tree for ``forward``, list of (flat
+    key, index or None, leaf)); the index is (unit,) or (unit, layer).
+    Taking the gradient of such leaves avoids the full-size zero-padded
+    gradient that slicing a stacked leaf would build once per slice in
+    the backward."""
     slots = []
 
-    def leaf(t, key, u=None):
+    def leaf(t, key, index=None):
         x = t.detach().requires_grad_(True)
-        slots.append((key, u, x))
+        slots.append((key, index, x))
         return x
+
+    def unit(u):
+        out = {}
+        for sub in sorted(params["units"]):
+            flat = flatten(params["units"][sub], f"units/{sub}/")
+            if sub in layered:
+                n_layers = next(iter(flat.values())).shape[1]
+                out[sub] = [unflatten({k[len(f"units/{sub}/"):]:
+                                       leaf(t[u, i], k, (u, i))
+                                       for k, t in flat.items()})
+                            for i in range(n_layers)]
+            else:
+                out.update(unflatten({k[len("units/"):]:
+                                      leaf(t[u], k, (u,))
+                                      for k, t in flat.items()}))
+        return out
 
     split: Dict[str, Any] = {}
     for top in sorted(params):
         if top == "units":
-            flat = flatten(params["units"], "units/")
-            n = next(iter(flat.values())).shape[0]
-            split["units"] = [
-                unflatten({k[len("units/"):]: leaf(t[u], k, u)
-                           for k, t in flat.items()})
-                for u in range(n)]
+            n = next(iter(flatten(params["units"]).values())).shape[0]
+            split["units"] = [unit(u) for u in range(n)]
         else:
             sub = flatten({top: params[top]})
             split.update(unflatten({k: leaf(t, k) for k, t in sub.items()}))

@@ -11,6 +11,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd
 from repro_torch.launch.engine import DecodeEngine
 from repro_torch.models import init_params
 
@@ -42,6 +43,8 @@ def _err(got, want):
     ((1, 4, 1000, 128), torch.float32, True, 0, 1e-5),
     ((2, 2, 320, 64), torch.float32, False, 0, 1e-5),
     ((1, 4, 512, 64), torch.bfloat16, True, 100, 2 ** -7),
+    ((1, 4, 1000, 112), torch.float32, True, 0, 1e-5),
+    ((1, 8, 512, 112), torch.bfloat16, True, 0, 2 ** -7),
 ])
 def test_kernels_match_plain(cuda, shape, dtype, causal, window, tol):
     gen = torch.Generator(device=cuda)
@@ -196,3 +199,81 @@ def test_decode_step_on_the_card_takes_the_kernels(cuda):
         assert fd.LAUNCHES[key] == steps > 0
         outs.append([out[r] for r in rids])
     assert outs[0] == outs[1]
+
+
+def _ssd_inputs(gen, b, s, h, p, n, dtype):
+    dev = gen.device
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x, dt = r(b, s, h, p), torch.nn.functional.softplus(r(b, s, h) - 1)
+    a = -torch.exp(r(h) * 0.5)
+    bm, cm, dy = r(b, s, n), r(b, s, n), r(b, s, h, p)
+    return ([t.to(dtype) for t in (x, dt)] + [a]
+            + [t.to(dtype) for t in (bm, cm, dy)])
+
+
+# chip_smoke.py's limits: 1e-4 for f32 outputs (the chunk-local cumsum
+# enters every exponent, see SSD_TOL there), two bf16 steps for y and dx
+# from bf16 inputs
+@pytest.mark.parametrize("b,s,h,p,n,dtype", [
+    (1, 256, 3, 64, 64, torch.float32),
+    (2, 512, 4, 128, 16, torch.float32),
+    (1, 192, 2, 64, 16, torch.bfloat16),
+    (1, 128, 2, 128, 64, torch.bfloat16),
+])
+def test_ssd_kernels_match_plain(cuda, b, s, h, p, n, dtype):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    x, dt, a, bm, cm, dy = _ssd_inputs(gen, b, s, h, p, n, dtype)
+    ssd.reset_launches()
+    y, st = ssd.ssd_fwd(x, dt, a, bm, cm, return_states=True)
+    y_only = ssd.ssd_fwd(x, dt, a, bm, cm)
+    raw = ssd.ssd_bwd(x, dt, a, bm, cm, st, dy)
+    y_r, st_r = ref.ssd_fwd_ref(x, dt, a, bm, cm, chunk=ssd.CHUNK,
+                                return_states=True)
+    raw_r = ref.ssd_bwd_ref(x, dt, a, bm, cm, st_r, dy, chunk=ssd.CHUNK)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES == {"ssd_fwd": 2, "ssd_bwd": 1}
+    assert torch.equal(y, y_only)
+    for got, want in ((y, y_r), (st, st_r), *zip(raw, raw_r)):
+        assert got.dtype == want.dtype
+        tol = 2 ** -7 if got.dtype == torch.bfloat16 else 1e-4
+        assert _err(got, want) <= tol
+
+
+def test_ssd_unsupported_shapes_raise(cuda):
+    x = torch.zeros((1, 64, 2, 32), device=cuda)
+    dt = torch.zeros((1, 64, 2), device=cuda)
+    bm = torch.zeros((1, 64, 16), device=cuda)
+    with pytest.raises(ValueError, match="P in"):
+        ssd.ssd_fwd(x, dt, torch.zeros(2, device=cuda), bm, bm)
+    with pytest.raises(TypeError):
+        ssd.ssd_fwd(x.half(), dt.half(), torch.zeros(2, device=cuda),
+                    bm.half(), bm.half())
+
+
+def test_hybrid_training_on_the_card_takes_the_ssd_kernels(cuda):
+    """No switch: a reduced zamba2 (two units) on CUDA tensors launches
+    the SSD kernels once per Mamba2 layer (twice in the forward under
+    per-unit remat) and the flash kernels once per shared-block
+    application."""
+    from repro_torch.data import make_batch
+    from repro_torch.train import (TrainConfig, accumulate_gradients,
+                                   make_loss_and_grad)
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduced(),
+                              dtype="float32", n_layers=18)
+    params = init_params(cfg, 0, device=cuda)
+    batch = make_batch(cfg, 2, 100, device=cuda)
+    ssd.reset_launches()
+    fa.reset_launches()
+    loss, _ = accumulate_gradients(make_loss_and_grad(cfg, TrainConfig()),
+                                   params, batch, 2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    micro = 2
+    assert ssd.LAUNCHES == {"ssd_fwd": 2 * 18 * micro,
+                            "ssd_bwd": 18 * micro}
+    assert fa.LAUNCHES == {"flash_fwd": 2 * 2 * micro,
+                           "flash_bwd_dq": 2 * micro,
+                           "flash_bwd_dkdv": 2 * micro}

@@ -21,6 +21,7 @@ leaked = sorted(m for m in sys.modules
 print(len(names), leaked)
 assert not leaked, leaked
 for name in ("kernels.flash_attention", "kernels.flash_decode",
+             "kernels.ssd", "models.ssm", "configs.zamba2_7b",
              "launch.serve", "launch.engine", "launch.prefix"):
     assert "repro_torch." + name in names, name
 """

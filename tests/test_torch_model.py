@@ -35,7 +35,7 @@ def _configs(name):
     return jc, tc
 
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", MODELS + ["zamba2-7b"])
 def test_configs_match_reference(name):
     assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
         jax_config(name))
@@ -44,8 +44,8 @@ def test_configs_match_reference(name):
 
 
 def test_unported_families_name_their_slice():
-    with pytest.raises(NotImplementedError, match="hybrid slice"):
-        get_config("zamba2-7b")
+    with pytest.raises(NotImplementedError, match="remaining-families"):
+        get_config("xlstm-1.3b")
     cfg = dataclasses.replace(get_config("minicpm-2b").reduced(),
                               family="moe")
     with pytest.raises(NotImplementedError, match="remaining-families"):
