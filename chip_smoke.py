@@ -17,11 +17,13 @@ failure exits non-zero:
               decode, SSD) from ``src/repro_torch/kernels/csrc``, one
               nvcc per source, all started together.
 2. parity   - each kernel against its plain PyTorch version on the card,
-              at the main paths' shapes plus a ragged-S f32 case, a
-              non-causal case and a window case (attention), head_dim
-              112 (bf16 at zamba2's shape and ragged f32), the
-              forward at a query offset (the suffix prefill; its rows
-              must equal the one-shot forward's bitwise), a
+              at the main paths' shapes plus ragged-S, non-causal and
+              window cases in f32 (the scalar kernels) and in bf16 (the
+              tensor-core forward and dK/dV, ragged at head_dim 64, 112
+              and 128), head_dim 112 (bf16 at zamba2's shape and ragged
+              f32), the forward at a query offset in f32 and bf16 (the
+              suffix prefill; its rows must equal the one-shot
+              forward's bitwise), a
               length-0 slot, a ragged cache length and one kv head
               (decode), and the SSD forward (with and without per-chunk
               states) and backward at zamba2's layer shape, at a ragged
@@ -159,15 +161,44 @@ def cuda_time(fn, iters: int, warmup: int = 1) -> float:
 # ---------------------------------------------------------------------- #
 # phase 1: build
 # ---------------------------------------------------------------------- #
+def _ptxas(build_log: str) -> list:
+    """Each kernel's registers, spills and static shared memory from
+    ``nvcc -Xptxas -v``; names demangled by ``c++filt`` where it exists."""
+    import re
+    import shutil
+    out = []
+    for ln in build_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", ln)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+        regs = re.search(r"Used (\d+) registers", ln)
+        if entry:
+            out.append({"kernel": entry.group(1)})
+        elif spill and out:
+            out[-1].update(spill_stores=int(spill.group(1)),
+                           spill_loads=int(spill.group(2)))
+        elif regs and out:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[-1].update(registers=int(regs.group(1)),
+                           static_smem=int(smem.group(1)) if smem else 0)
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(
+            k["kernel"] for k in out), capture_output=True, text=True
+                               ).stdout.splitlines()
+        for k, name in zip(out, names):
+            k["kernel"] = name.replace("(anonymous namespace)::", "") \
+                .removeprefix("void ").split("(")[0]
+    return out
+
+
 def phase_build():
     from repro_torch.kernels.build import build_all
     t0 = time.perf_counter()
     libs = build_all()
     for name, lib in libs.items():
-        ptxas = [ln.strip() for ln in lib.build_log.splitlines()
-                 if "registers" in ln or "spill" in ln]
         log("build", library=name, nvcc_seconds=lib.build_seconds,
-            path=os.path.relpath(lib.path, ROOT), ptxas=ptxas)
+            path=os.path.relpath(lib.path, ROOT),
+            ptxas=_ptxas(lib.build_log))
     log("build", seconds=time.perf_counter() - t0)
 
 
@@ -656,11 +687,21 @@ def phase_parity():
     parity_case("ragged-f32", (1, 4, 1000, 128), f32, True, 0, False)
     parity_case("noncausal-f32", (2, 2, 320, 64), f32, False, 0, False)
     parity_case("window", (1, 4, 1000, 64), bf16, True, 200, False)
+    # the bf16 tensor-core forward and dK/dV at the edges the f32 cases
+    # hold the scalar kernels to: a ragged S, no causal mask, a window
+    for d in (64, 112, 128):
+        parity_case(f"ragged-bf16 D={d}", (1, 4, 1000, d), bf16, True, 0,
+                    False)
+    parity_case("noncausal-bf16", (2, 2, 320, 64), bf16, False, 0, False)
+    parity_case("window D=128", (1, 4, 1000, 128), bf16, True, 200, False)
     # the suffix prefill of a prefix-shared hit: the engine phase's
-    # 1024-token system prefix, and a ragged f32 case
+    # 1024-token system prefix, and ragged cases (an offset that is no
+    # multiple of the 64-row tile) in f32 and bf16
     suffix_case("qwen2-vl-2b suffix prefill", 1, 12, 2048, SYSTEM_PREFIX,
                 128, bf16)
     suffix_case("ragged suffix f32", 2, 4, 1000, 333, 64, f32)
+    suffix_case("ragged suffix bf16 D=64", 2, 4, 1000, 333, 64, bf16)
+    suffix_case("ragged suffix bf16 D=128", 2, 4, 1000, 333, 128, bf16)
     # decode: ragged lengths from a seed, including 1 and the full cache
     rng = np.random.default_rng(0)
     lens = [1, MAX_LEN] + rng.integers(1, MAX_LEN + 1, 6).tolist()
@@ -823,7 +864,7 @@ def phase_pair(iters: int = 2):
 def _category(kernel: str) -> str:
     if "ssd_fwd_kernel" in kernel or "ssd_bwd_kernel" in kernel:
         return "SSD (port kernels)"
-    if "flash_fwd_kernel" in kernel or "flash_bwd_" in kernel:
+    if "flash_fwd_" in kernel or "flash_bwd_" in kernel:
         return "attention (port kernels)"
     low = kernel.lower()
     if any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):

@@ -1,24 +1,53 @@
 // Flash attention for Hopper (sm_90a): forward, dQ and dK/dV.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/flash_attention.py:
-//   flash_fwd_kernel      <- _flash_fwd_kernel      (pallas_call in flash_attention_fwd)
-//   flash_bwd_dq_kernel   <- _flash_bwd_dq_kernel   (first pallas_call in flash_attention_bwd)
-//   flash_bwd_dkdv_kernel <- _flash_bwd_dkdv_kernel (second pallas_call in flash_attention_bwd)
+//   flash_fwd_mma_kernel (bf16), flash_fwd_kernel (f32)
+//       <- _flash_fwd_kernel      (pallas_call in flash_attention_fwd)
+//   flash_bwd_dq_kernel (bf16 and f32)
+//       <- _flash_bwd_dq_kernel   (first pallas_call in flash_attention_bwd)
+//   flash_bwd_dkdv_mma_kernel (bf16), flash_bwd_dkdv_kernel (f32)
+//       <- _flash_bwd_dkdv_kernel (second pallas_call in flash_attention_bwd)
 //
 // What bounds them. At the training shapes (S = 2048, D = 64, 112 or 128) each
 // kernel does O(S^2 D) arithmetic on O(S D) bytes: hundreds of operations
 // per byte, far above the H100's ~295 bf16 operations per byte of device
-// memory, so the bound is arithmetic. The card's bf16 rate lives in the
-// tensor cores (wgmma); these first kernels do not use them.
+// memory, so the bound is arithmetic: the tensor cores' 989 TFLOP/s in bf16,
+// the CUDA cores' 67 TFLOP/s in f32.
 //
-// What the simple design does about it. Each block keeps its q (or kv)
-// tile and the streaming kv (or q) tile in shared memory as f32, so device
-// memory is read once per tile pair and the (S, S) scores never leave the
-// SM. Products are scalar f32 FMAs over 4 x 4 (scores) and 4 x D/16
-// (outputs) register micro-tiles of a 16 x 16 thread grid; rows are padded
-// by one float so column walks hit distinct banks. Tiles that the causal
-// or window mask hides entirely are skipped, which halves causal work.
-// wgmma/TMA pipelines are later work.
+// Two designs, chosen by dtype:
+//
+// bf16, forward and dK/dV (flash_fwd_mma_kernel, flash_bwd_dkdv_mma_kernel):
+// tensor cores through warp-level mma.sync m16n8k16 (bf16 operands, f32
+// accumulators), operands from shared memory by ldmatrix (.trans where the
+// product wants the tile's columns), tiles brought in by 16-byte cp.async,
+// double-buffered so the next tile loads while this one computes. A block
+// is 4 warps over a 64-row tile, each warp owning 16 rows. The forward
+// keeps its q fragments in registers, streams 64-key K/V tiles, keeps the
+// online softmax (m, l) in registers (a row lives on one 4-lane quad and
+// reduces over it by xor shuffles) and feeds P, converted to bf16 in
+// registers, straight back as the A operand of P.V: the m16n8k16 C
+// fragment is laid out as the A fragment, so P never touches shared
+// memory. The dK/dV kernel keeps its K/V tile resident and computes
+// transposed, kv rows as the M dimension: S^T = K Q^T, P^T = exp(scale
+// S^T - lse), dP^T = V dO^T, dS^T = P^T (dP^T - delta), then dV += P^T dO
+// and dK += dS^T Q with P^T and dS^T as bf16 A operands; no atomics. Rows
+// are padded by 16 bytes so the 8 row addresses of an ldmatrix hit
+// distinct banks (D = 112 rows are 14 chunks of 16 bytes, which an XOR
+// swizzle over 8 chunks would not divide). Every sum is f32. dK/dV rounds
+// P^T and dS^T to bf16 as operands, as FlashAttention-2 does; the forward
+// enters P as bf16 hi + lo, two products, because the O it writes feeds
+// the backward's delta = rowsum(dO O), where dP - delta cancels.
+//
+// f32, and bf16 dQ (flash_fwd_kernel, flash_bwd_dq_kernel,
+// flash_bwd_dkdv_kernel): the first, simple design. Each block keeps its q
+// (or kv) tile and the streaming kv (or q) tile in shared memory as f32
+// and computes scalar f32 FMAs over 4 x 4 (scores) and 4 x D/16 (outputs)
+// register micro-tiles of a 16 x 16 thread grid, rows padded by one
+// float. These hold the f32 parity cases to 1e-5, which TF32 tensor cores
+// would not; dQ in bf16 is the next to move to the tensor cores.
+//
+// Both designs skip the tiles that the causal or window mask hides
+// entirely, which halves causal work. wgmma/TMA pipelines are later work.
 //
 // The TPU grid walks its last axis in order and carries m/l/acc in VMEM
 // scratch between grid steps. Hopper blocks run in no order, so here the
@@ -27,20 +56,25 @@
 // kernel one block per (b*h, kv tile) looping over q tiles. dQ and dK/dV
 // stay two kernels, so no output needs atomics.
 //
-// Numerics follow the reference: q is scaled by d**-0.5 in f32 before the
-// QK^T product; masks are kpos < S, causal qpos >= kpos, and
-// kpos > qpos - window; accumulation is f32; O, dQ, dK, dV are written in
-// the input type and lse in f32 (0 for a row with no visible key). The
-// ragged S edge is masked in the kernel instead of padded.
+// Numerics follow the reference: masks are kpos < S, causal qpos >= kpos,
+// and kpos > qpos - window; accumulation is f32; O, dQ, dK, dV are written
+// in the input type and lse in f32 (0 for a row with no visible key, whose
+// O is 0). The f32 kernels scale q by d**-0.5 before QK^T as the reference
+// does; the bf16 kernels scale the f32 scores instead (d**-0.5 is exact in
+// bf16 only at D = 64) and take exp as exp2 with log2(e) folded into the
+// scale, and dK/dV applies the scale to dK at the end. The ragged S edge is
+// masked in the kernel (zero-filled rows) instead of padded.
 //
 // The forward also serves the suffix prefill of a prefix-shared serving
 // cache: sq query rows at absolute positions q_offset .. q_offset + sq - 1
 // over sk >= q_offset + sq key rows. A row's result does not depend on
 // which q tile holds it: kv tiles start at key 0 whatever q_offset is,
-// every tile with a key the row sees is visited in the same order, and a
-// visited tile the mask hides from the row adds exactly 0 to it (p = 0,
-// correction 1). So the suffix rows carry the bits of the same rows of a
-// one-shot forward over the whole prompt.
+// every tile with a key the row sees is visited in the same order, a row
+// reduces over its own lanes in a fixed order, and a visited tile the mask
+// hides from the row adds exactly 0 to it (p = 0, correction exp(0) = 1;
+// no rescale is taken or skipped by a per-warp decision). So the suffix
+// rows carry the bits of the same rows of a one-shot forward over the
+// whole prompt.
 //
 // Plain C interface for ctypes. Every entry returns cudaGetLastError()
 // after its launch (0 on success). Launches go to the caller's stream.
@@ -49,6 +83,7 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -438,6 +473,474 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   }
 }
 
+// ------------------------------------------------------------------------
+// bf16 on the tensor cores: mma.sync m16n8k16, ldmatrix, cp.async
+// ------------------------------------------------------------------------
+namespace tc {
+
+typedef __nv_bfloat16 bf16;
+constexpr int NTH = 128;  // threads per block: 4 warps of 16 tile rows each
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; an invalid row copies 0 bytes and zero-fills
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a b for one 16 x 8 tile: a 16 x 16 (row), b 16 x 8 (col), f32 sums
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16 pair, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x as hi + lo, two bf16 pairs: hi = bf16(x), lo = bf16(x - hi), so that
+// hi + lo carries x to ~16 bits where bf16 alone carries 8
+__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 r =
+      __floats2bfloat162_rn(x0 - __bfloat162float(h.x), x1 - __bfloat162float(h.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16). Lane = 4 g + t.
+// A (16 x 16): a0 (row g, cols 2t, 2t+1), a1 (row g+8, same cols),
+// a2 (row g, cols 2t+8, 2t+9), a3 (row g+8, cols 2t+8, 2t+9).
+// B (16 x 8): b0 (rows 2t, 2t+1, col g), b1 (rows 2t+8, 2t+9, col g).
+// C (16 x 8): c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8, same cols).
+// So the C fragments of two neighbouring n-tiles are, packed to bf16, the
+// A fragment of one k-step: (c0c1, c2c3) of the first are a0, a1, of the
+// second a2, a3. ldmatrix x4 takes from lane l the address of row l % 8
+// of 8 x 8 matrix l / 8, and gives register i the element (row g, cols 2t,
+// 2t+1) of matrix i, or with .trans (rows 2t, 2t+1, col g).
+
+// A operand, rows r0 .. r0+15 and cols c0 .. c0+15 of a row-major tile
+template <int LD>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t, int r0, int c0) {
+  const int l = threadIdx.x % 32, j = l / 8;
+  ldsm_x4(a, t + (r0 + (j & 1) * 8 + l % 8) * LD + c0 + (j >> 1) * 8);
+}
+
+// B operands of two n-tiles whose n index runs down the tile's rows
+// (n0 .. n0+15) and k index along them (c0 .. c0+15): b[0], b[1] for
+// n0 .. n0+7 and b[2], b[3] for n0+8 .. n0+15
+template <int LD>
+__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const bf16* t, int n0, int c0) {
+  const int l = threadIdx.x % 32, j = l / 8;
+  ldsm_x4(b, t + (n0 + (j >> 1) * 8 + l % 8) * LD + c0 + (j & 1) * 8);
+}
+
+// the same from a tile whose k index runs down the rows (k0 .. k0+15)
+// and n index along them (n0 .. n0+15): transposed
+template <int LD>
+__device__ __forceinline__ void frag_bt(uint32_t (&b)[4], const bf16* t, int k0, int n0) {
+  const int l = threadIdx.x % 32, j = l / 8;
+  ldsm_x4_t(b, t + (k0 + (j & 1) * 8 + l % 8) * LD + n0 + (j >> 1) * 8);
+}
+
+// rows [row0, row0 + 64) of a row-major (s, D) matrix into a [64][D + 8]
+// tile; rows at or past s are zero-filled
+template <int D>
+__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, int row0, int s) {
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int i = threadIdx.x; i < 64 * CH; i += NTH) {
+    const int r = i / CH, c = i % CH, gr = row0 + r;
+    cp_async_16(dst + r * (D + 8) + c * 8, src + (size_t)(gr < s ? gr : 0) * D + c * 8, gr < s);
+  }
+}
+
+constexpr size_t tile_elems(int d) { return (size_t)64 * (d + 8); }
+// Q, and K and V twice each
+constexpr size_t fwd_smem(int d) { return 5 * tile_elems(d) * sizeof(bf16); }
+// K, V, and Q and dO twice each; lse and delta twice each
+constexpr size_t dkdv_smem(int d) {
+  return 6 * tile_elems(d) * sizeof(bf16) + 4 * 64 * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH, 2)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                     int sq, int sk, int q_offset, int causal, int window, float scale) {
+  constexpr int LD = D + 8, KD = D / 16, ND = D / 8, T = 64 * LD;
+  extern __shared__ __align__(16) unsigned char smem_fwd[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_fwd);
+  bf16* sK = sQ + T;      // two buffers
+  bf16* sV = sK + 2 * T;  // two buffers
+
+  // the q tiles with the most causal work go first
+  const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * BQ, qa = q_offset + q0;
+  const bf16* qg = q + (size_t)bh * sq * D;
+  const bf16* kg = k + (size_t)bh * sk * D;
+  const bf16* vg = v + (size_t)bh * sk * D;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wr = threadIdx.x / 32 * 16;  // the warp's first tile row
+  const Mask mask{sk, causal, window};
+  const float sl2 = scale * LOG2E;
+
+  int lo, hi;
+  kv_range(qa, sk, causal, window, lo, hi);
+  const int kt0 = lo / BK, kt1 = (hi + BK - 1) / BK;
+
+  tile_async<D>(sQ, qg, q0, sq);
+  if (kt0 < kt1) {
+    tile_async<D>(sK, kg, kt0 * BK, sk);
+    tile_async<D>(sV, vg, kt0 * BK, sk);
+  }
+  cp_async_commit();
+
+  uint32_t qf[KD][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // rows wr + g and wr + g + 8; m in units of the scores times
+  // scale * log2(e)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int buf = (kt - kt0) & 1, k0 = kt * BK;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt is in for every thread; tile kt - 1's readers are done
+    if (kt + 1 < kt1) {
+      tile_async<D>(sK + (buf ^ 1) * T, kg, k0 + BK, sk);
+      tile_async<D>(sV + (buf ^ 1) * T, vg, k0 + BK, sk);
+    }
+    cp_async_commit();
+    if (kt == kt0) {
+#pragma unroll
+      for (int ks = 0; ks < KD; ++ks) frag_a<LD>(qf[ks], sQ, wr, ks * 16);
+    }
+    const bf16* tK = sK + buf * T;
+    const bf16* tV = sV + buf * T;
+
+    // S = Q K^T: the warp's 16 rows by 64 keys, 8 n-tiles
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        frag_b<LD>(b, tK, np * 16, ks * 16);
+        mma(s[2 * np], qf[ks], b[0], b[1]);
+        mma(s[2 * np + 1], qf[ks], b[2], b[3]);
+      }
+    }
+    // the mask, on tiles that cross the diagonal, the window edge or sk
+    const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > qa) ||
+                      (window > 0 && k0 <= qa + BQ - 1 - window);
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!mask.ok(qa + wr + g + (e >> 1) * 8, k0 + n * 8 + 2 * t + (e & 1)))
+            s[n][e] = -INFINITY;
+    }
+
+    // online softmax; a row's 64 scores sit on one quad, 16 a lane
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx * sl2);
+      // a row that has seen no key yet keeps m = -inf, p = 0, corr = 1
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = m_new == -INFINITY ? 1.f : exp2f(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        s[n][2 * i] = exp2f(fmaf(s[n][2 * i], sl2, -m_use));
+        s[n][2 * i + 1] = exp2f(fmaf(s[n][2 * i + 1], sl2, -m_use));
+        sum += s[n][2 * i] + s[n][2 * i + 1];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      // explicit roundings: the two rows a lane holds are unrolled apart,
+      // and a contraction taken in one and not the other would make a
+      // row's bits depend on its place in the tile
+      l[i] = __fmaf_rn(l[i], corr, sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][2 * i] *= corr;
+        acc[n][2 * i + 1] *= corr;
+      }
+    }
+
+    // O += P V, P from the score registers as bf16 A fragments. P enters
+    // as hi + lo: O feeds delta = rowsum(dO O) of the backward, where dP -
+    // delta cancels, and P rounded to bf16 alone puts O ~2x further from
+    // the plain version (measured), enough to push dQ past the bf16 limit
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4], al[4];
+      split(s[2 * kk][0], s[2 * kk][1], a[0], al[0]);
+      split(s[2 * kk][2], s[2 * kk][3], a[1], al[1]);
+      split(s[2 * kk + 1][0], s[2 * kk + 1][1], a[2], al[2]);
+      split(s[2 * kk + 1][2], s[2 * kk + 1][3], a[3], al[3]);
+#pragma unroll
+      for (int dp = 0; dp < KD; ++dp) {
+        uint32_t b[4];
+        frag_bt<LD>(b, tV, kk * 16, dp * 16);
+        mma(acc[2 * dp], a, b[0], b[1]);
+        mma(acc[2 * dp + 1], a, b[2], b[3]);
+        mma(acc[2 * dp], al, b[0], b[1]);
+        mma(acc[2 * dp + 1], al, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0 + wr + g + 8 * i;
+    if (qp < sq) {
+      bf16* orow = o + ((size_t)bh * sq + qp) * D;
+      const float li = l[i];
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) = __floats2bfloat162_rn(
+            li > 0.f ? acc[n][2 * i] / li : 0.f, li > 0.f ? acc[n][2 * i + 1] / li : 0.f);
+      if (t == 0)
+        lse[(size_t)bh * sq + qp] = li > 0.f ? __fadd_rn(__fmul_rn(m[i], LN2), logf(li)) : 0.f;
+    }
+  }
+}
+
+// P^T and dP^T stay in f32 registers beside the dK and dV accumulators:
+// at D = 128 that is 255 registers a thread and no spills (-Xptxas -v)
+template <int D>
+__global__ void __launch_bounds__(NTH)
+flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int s, int causal,
+                          int window, float scale) {
+  constexpr int LD = D + 8, KD = D / 16, ND = D / 8, T = 64 * LD, NQ = BQ / 8;
+  extern __shared__ __align__(16) unsigned char smem_dkdv[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_dkdv);
+  bf16* sV = sK + T;
+  bf16* sQ = sV + T;      // two buffers
+  bf16* sO = sQ + 2 * T;  // dO, two buffers
+  float* sL = reinterpret_cast<float*>(sO + 2 * T);  // lse, two buffers
+  float* sD = sL + 2 * BQ;                            // delta, two buffers
+
+  const int bh = blockIdx.y, k0 = blockIdx.x * BK;
+  const size_t base = (size_t)bh * s * D;
+  const float* lg = lse + (size_t)bh * s;
+  const float* dg = delta + (size_t)bh * s;
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wr = tid / 32 * 16;  // the warp's first kv row
+  const Mask mask{s, causal, window};
+  const float sl2 = scale * LOG2E;
+
+  int lo, hi;
+  q_range(k0, s, causal, window, lo, hi);
+  const int qt0 = lo / BQ, qt1 = (hi + BQ - 1) / BQ;
+
+  // q tile qt into buffer b: Q, dO, and (a thread a row) lse or delta
+  auto load_q = [&](int b, int qt) {
+    const int q0 = qt * BQ, r = q0 + tid % BQ;
+    tile_async<D>(sQ + b * T, q + base, q0, s);
+    tile_async<D>(sO + b * T, dout + base, q0, s);
+    if (tid < BQ) cp_async_4(sL + b * BQ + tid, lg + (r < s ? r : 0), r < s);
+    else cp_async_4(sD + b * BQ + tid - BQ, dg + (r < s ? r : 0), r < s);
+  };
+
+  tile_async<D>(sK, k + base, k0, s);
+  tile_async<D>(sV, v + base, k0, s);
+  if (qt0 < qt1) load_q(0, qt0);
+  cp_async_commit();
+
+  // rows wr + g and wr + g + 8 of the kv tile
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dka[n][e] = 0.f;
+      dva[n][e] = 0.f;
+    }
+
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int buf = (qt - qt0) & 1, q0 = qt * BQ;
+    cp_async_wait_all();
+    __syncthreads();  // q tile qt is in; tile qt - 1's readers are done
+    if (qt + 1 < qt1) load_q(buf ^ 1, qt + 1);
+    cp_async_commit();
+    const bf16* tQ = sQ + buf * T;
+    const bf16* tO = sO + buf * T;
+    const float* tL = sL + buf * BQ;
+    const float* tD = sD + buf * BQ;
+    const bool edge = q0 + BQ > s || k0 + BK > s || (causal && q0 < k0 + BK - 1) ||
+                      (window > 0 && q0 + BQ - 1 >= k0 + window);
+
+    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 kv rows by 64 q columns
+    float st[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        st[n][e] = 0.f;
+        dp[n][e] = 0.f;
+      }
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks) {
+      uint32_t ak[4], av[4];
+      frag_a<LD>(ak, sK, wr, ks * 16);
+      frag_a<LD>(av, sV, wr, ks * 16);
+#pragma unroll
+      for (int np = 0; np < NQ / 2; ++np) {
+        uint32_t b[4];
+        frag_b<LD>(b, tQ, np * 16, ks * 16);
+        mma(st[2 * np], ak, b[0], b[1]);
+        mma(st[2 * np + 1], ak, b[2], b[3]);
+        frag_b<LD>(b, tO, np * 16, ks * 16);
+        mma(dp[2 * np], av, b[0], b[1]);
+        mma(dp[2 * np + 1], av, b[2], b[3]);
+      }
+    }
+    // P^T = exp(scale S^T - lse), dS^T = P^T (dP^T - delta), per q column
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = n * 8 + 2 * t + e, qp = q0 + c;
+        const float l2 = tL[c] * LOG2E, de = tD[c];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float p = exp2f(fmaf(st[n][2 * h + e], sl2, -l2));
+          if (edge && !(qp < s && mask.ok(qp, k0 + wr + g + 8 * h))) p = 0.f;
+          st[n][2 * h + e] = p;
+          dp[n][2 * h + e] = p * (dp[n][2 * h + e] - de);
+        }
+      }
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T as bf16 A fragments
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint32_t pa[4] = {pack(st[2 * kk][0], st[2 * kk][1]),
+                              pack(st[2 * kk][2], st[2 * kk][3]),
+                              pack(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+                              pack(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+      const uint32_t sa[4] = {pack(dp[2 * kk][0], dp[2 * kk][1]),
+                              pack(dp[2 * kk][2], dp[2 * kk][3]),
+                              pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                              pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int dq = 0; dq < KD; ++dq) {
+        uint32_t b[4];
+        frag_bt<LD>(b, tO, kk * 16, dq * 16);
+        mma(dva[2 * dq], pa, b[0], b[1]);
+        mma(dva[2 * dq + 1], pa, b[2], b[3]);
+        frag_bt<LD>(b, tQ, kk * 16, dq * 16);
+        mma(dka[2 * dq], sa, b[0], b[1]);
+        mma(dka[2 * dq + 1], sa, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kp = k0 + wr + g + 8 * h;
+    if (kp < s) {
+      const size_t row = base + (size_t)kp * D;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const int c = n * 8 + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(dk + row + c) =
+            __floats2bfloat162_rn(dka[n][2 * h] * scale, dka[n][2 * h + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + row + c) =
+            __floats2bfloat162_rn(dva[n][2 * h], dva[n][2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq, int sk,
+        int q_offset, int causal, int window, float scale, cudaStream_t st) {
+  const size_t smem = fwd_smem(D);
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((sq + BQ - 1) / BQ, bh);
+  flash_fwd_mma_kernel<D><<<grid, NTH, smem, st>>>((const bf16*)q, (const bf16*)k,
+                                                   (const bf16*)v, (bf16*)o, lse, sq, sk,
+                                                   q_offset, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+             const float* delta, void* dk, void* dv, int bh, int s, int causal, int window,
+             float scale, cudaStream_t st) {
+  const size_t smem = dkdv_smem(D);
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((s + BK - 1) / BK, bh);
+  flash_bwd_dkdv_mma_kernel<D><<<grid, NTH, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dk,
+      (bf16*)dv, s, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 constexpr size_t fwd_smem(int d) { return sizeof(float) * ((size_t)(BQ + 2 * BK) * (d + 1) + BQ * LS + 3 * BQ); }
 constexpr size_t bwd_smem(int d) { return sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * (d + 1) + 2 * BQ * LS + 2 * BQ); }
 
@@ -449,13 +952,17 @@ cudaError_t allow_smem(Kern kern, size_t bytes) {
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
         int sk, int q_offset, int causal, int window, float scale, cudaStream_t st) {
-  const size_t smem = fwd_smem(D);
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((sq + BQ - 1) / BQ, bh);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
-                                                 lse, sq, sk, q_offset, causal, window, scale);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return tc::fwd<D>(q, k, v, o, lse, bh, sq, sk, q_offset, causal, window, scale, st);
+  } else {
+    const size_t smem = fwd_smem(D);
+    cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((sq + BQ - 1) / BQ, bh);
+    flash_fwd_kernel<T, D><<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
+                                                   lse, sq, sk, q_offset, causal, window, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -476,22 +983,30 @@ template <typename T, int D>
 int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
              const float* delta, void* dk, void* dv, int bh, int s, int causal, int window,
              float scale, cudaStream_t st) {
-  const size_t smem = bwd_smem(D);
-  cudaError_t e = allow_smem(flash_bwd_dkdv_kernel<T, D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((s + BK - 1) / BK, bh);
-  flash_bwd_dkdv_kernel<T, D><<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
-                                                      (const T*)dout, lse, delta, (T*)dk,
-                                                      (T*)dv, s, causal, window, scale);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return tc::bwd_dkdv<D>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, window, scale, st);
+  } else {
+    const size_t smem = bwd_smem(D);
+    cudaError_t e = allow_smem(flash_bwd_dkdv_kernel<T, D>, smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((s + BK - 1) / BK, bh);
+    flash_bwd_dkdv_kernel<T, D><<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
+                                                        (const T*)dout, lse, delta, (T*)dk,
+                                                        (T*)dv, s, causal, window, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 64, 112 (zamba2's shared
-// block) or 128; every loop over D steps by one or by 16 (NJ = D / 16
-// columns a thread), so D only has to be a multiple of 16. Anything else
-// returns cudaErrorInvalidValue without launching.
+// dtype: 0 = float32 (the scalar kernels), 1 = bfloat16 (the tensor-core
+// forward and dK/dV, the scalar dQ). head_dim: 64, 112 (zamba2's shared
+// block) or 128; both designs step over D by 16 (the scalar kernels' NJ =
+// D / 16 columns a thread, the tensor cores' k-steps and n-tile pairs), so
+// D only has to be a multiple of 16. Anything else returns
+// cudaErrorInvalidValue without launching. The tensor-core kernels copy
+// q, k, v and dO rows 16 bytes at a time: those pointers must be 16-byte
+// aligned (the wrappers check).
 #define DISPATCH(FN, ...)                                                  \
   if (dtype == 0 && d == 64) return FN<float, 64>(__VA_ARGS__);            \
   if (dtype == 0 && d == 112) return FN<float, 112>(__VA_ARGS__);          \

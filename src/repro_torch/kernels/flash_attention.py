@@ -2,12 +2,15 @@
 ``csrc/flash_attention.cu`` (forward, dQ, dK/dV) and the
 ``torch.autograd.Function`` that joins them.
 
-Layout is the kernels' (B, H, S, D), contiguous, bf16 or f32, head_dim
-64, 112 (zamba2-7b's shared block) or 128. Each wrapper routes on the
-device of the tensor it is given: a CPU tensor takes the plain PyTorch
-version (``ref.py``); a CUDA tensor launches the kernel or raises, never
-falls back. ``LAUNCHES`` counts the kernel launches of each wrapper, and
-only those.
+Layout is the kernels' (B, H, S, D), contiguous and 16-byte aligned,
+bf16 or f32, head_dim 64, 112 (zamba2-7b's shared block) or 128. In bf16
+the forward and dK/dV run on the tensor cores (``mma.sync``, ``ldmatrix``,
+``cp.async``), dQ on the scalar f32 design; in f32 all three run the
+scalar design, which holds them to 1e-5 of the plain version. Each
+wrapper routes on the device of the tensor it is given: a CPU tensor
+takes the plain PyTorch version (``ref.py``); a CUDA tensor launches the
+kernel or raises, never falls back. ``LAUNCHES`` counts the kernel
+launches of each wrapper, and only those.
 
 Replaces the reference's ``kernels/flash_attention.py``
 (``flash_attention_fwd`` / ``flash_attention_bwd`` and their
@@ -54,6 +57,9 @@ def _check(name: str, ref: torch.Tensor, **tensors) -> None:
                              f"{want_dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+        if t.dim() == 4 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned "
+                             "(the kernels copy rows 16 bytes at a time)")
 
 
 def _route(t: torch.Tensor) -> bool:

@@ -45,6 +45,12 @@ def _err(got, want):
     ((1, 4, 512, 64), torch.bfloat16, True, 100, 2 ** -7),
     ((1, 4, 1000, 112), torch.float32, True, 0, 1e-5),
     ((1, 8, 512, 112), torch.bfloat16, True, 0, 2 ** -7),
+    # the bf16 tensor-core forward and dK/dV at the same edges
+    ((1, 4, 1000, 64), torch.bfloat16, True, 0, 2 ** -7),
+    ((1, 4, 1000, 112), torch.bfloat16, True, 0, 2 ** -7),
+    ((1, 4, 1000, 128), torch.bfloat16, True, 0, 2 ** -7),
+    ((2, 2, 320, 64), torch.bfloat16, False, 0, 2 ** -7),
+    ((1, 4, 1000, 64), torch.bfloat16, True, 200, 2 ** -7),
 ])
 def test_kernels_match_plain(cuda, shape, dtype, causal, window, tol):
     gen = torch.Generator(device=cuda)
@@ -72,6 +78,8 @@ def test_kernels_match_plain(cuda, shape, dtype, causal, window, tol):
     (1000, 333, 128, torch.float32, 1e-5),
     (777, 700, 64, torch.bfloat16, 2 ** -7),
     (130, 64, 64, torch.float32, 1e-5),
+    (1000, 333, 64, torch.bfloat16, 2 ** -7),
+    (1000, 333, 128, torch.bfloat16, 2 ** -7),
 ])
 def test_forward_at_a_query_offset(cuda, sk, start, d, dtype, tol):
     """The suffix prefill's form (Sk - start query rows at absolute
@@ -96,6 +104,15 @@ def test_forward_at_a_query_offset(cuda, sk, start, d, dtype, tol):
 def test_wrong_head_dim_raises(cuda):
     q = torch.zeros((1, 1, 64, 32), device=cuda)
     with pytest.raises(ValueError, match="D in"):
+        fa.flash_attention_fwd(q, q, q)
+
+
+def test_misaligned_input_raises(cuda):
+    """The kernels copy rows 16 bytes at a time: a contiguous view that
+    starts off a 16-byte boundary is refused, not read askew."""
+    flat = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    q = flat[1:].view(1, 1, 64, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_attention_fwd(q, q, q)
 
 
