@@ -19,18 +19,21 @@ failure exits non-zero:
 2. parity   - each kernel against its plain PyTorch version on the card,
               at the main paths' shapes plus ragged-S, non-causal and
               window cases in f32 (the scalar kernels) and in bf16 (the
-              tensor-core forward and dK/dV, ragged at head_dim 64, 112
-              and 128), head_dim 112 (bf16 at zamba2's shape and ragged
-              f32), the forward at a query offset in f32 and bf16 (the
-              suffix prefill; its rows must equal the one-shot
-              forward's bitwise), a
-              length-0 slot, a ragged cache length and one kv head
-              (decode), and the SSD forward (with and without per-chunk
+              tensor-core forward, dQ and dK/dV, each edge at head_dim
+              64, 112 and 128; the bf16 dS form and dQ's largest
+              error reported), head_dim 112 (bf16 at zamba2's shape and
+              ragged f32), the forward at a query offset in f32 and
+              bf16 (the suffix prefill; its rows must equal the
+              one-shot forward's bitwise), a length-0 slot, a ragged
+              cache length and one kv head (decode), a slot's decode
+              row alone and among 8 slots, linear and paged (bitwise
+              equal), and the SSD forward (with and without per-chunk
               states) and backward at zamba2's layer shape, at a ragged
               S with P 128, N 16, and with bf16 inputs, each also
               against an f64 evaluation; times kernel, plain version
               and the PyTorch library call (SDPA, a yardstick the port
-              never calls; none exists for the SSD scan).
+              never calls; none exists for the SSD scan), and the host's
+              time to issue one decode wrapper call.
 3. solo     - minicpm-2b through ``ScheduleExecutor``: 3 steps at s = 4,
               a reconfig to s = 2, 2 steps, one ragged step (B = 5,
               b = 2, s = 3), finish; launch counts must equal
@@ -158,6 +161,22 @@ def cuda_time(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int, warmup: int = 1) -> float:
+    """Mean microseconds the host takes to issue ``fn()`` (its checks,
+    allocations and launches), from an idle card: where this exceeds the
+    kernels' device time, ``cuda_time`` reads the host."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / iters
+    torch.cuda.synchronize()
+    return us
+
+
 # ---------------------------------------------------------------------- #
 # phase 1: build
 # ---------------------------------------------------------------------- #
@@ -196,9 +215,11 @@ def phase_build():
     t0 = time.perf_counter()
     libs = build_all()
     for name, lib in libs.items():
+        ptxas = _ptxas(lib.build_log)
         log("build", library=name, nvcc_seconds=lib.build_seconds,
-            path=os.path.relpath(lib.path, ROOT),
-            ptxas=_ptxas(lib.build_log))
+            path=os.path.relpath(lib.path, ROOT), ptxas=ptxas,
+            spills=[k["kernel"] for k in ptxas
+                    if k.get("spill_stores") or k.get("spill_loads")])
     log("build", seconds=time.perf_counter() - t0)
 
 
@@ -318,7 +339,7 @@ def parity_case(label, shape, dtype, causal, window, timed):
                              f"{label}: {bad} > {tol}")
     if not timed:
         log("parity", **row)
-        return None
+        return row
 
     fns = {
         "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v, **kw),
@@ -352,7 +373,7 @@ def parity_case(label, shape, dtype, causal, window, timed):
                         "library_ms": library[name], **bounds[name]}
     row["timing"] = timing
     log("parity", **row)
-    return abs_errs, timing
+    return row
 
 
 def suffix_case(label, b, h, sk, start, d, dtype):
@@ -505,6 +526,7 @@ def decode_case(label, b, h, h_kv, s, d, dtype, lengths, timed,
     timing = {}
     for name, (kern, plain, lib) in fns.items():
         timing[name] = {"ms": cuda_time(kern, iters=20),
+                        "host_us": host_us(kern, iters=20),
                         "plain_ms": cuda_time(plain, iters=5),
                         "library_ms": cuda_time(lib, iters=20),
                         **_decode_bound(lengths.tolist(), s, h, h_kv, d,
@@ -513,6 +535,50 @@ def decode_case(label, b, h, h_kv, s, d, dtype, lengths, timed,
     row["timing"] = timing
     log("parity", **row)
     return abs_errs, timing
+
+
+def decode_invariance_case(label, h, h_kv, s, d, dtype, page_size=16):
+    """One slot's row alone (B = 1) and among 8 slots of other lengths,
+    through the linear kernel (alone: in a cache 300 rows longer) and the
+    paged kernel (among 8: through a table 5 pages wider): all four
+    bitwise equal. The split-K kernels' splits and merge order depend on
+    the slot's length alone, never on B, the capacity or the table."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    rng = np.random.default_rng(5)
+    lengths = rng.integers(1, s + 1, 8)
+    i = 3
+    lengths[i] = s - 1095                 # ragged, several splits
+    lengths = torch.as_tensor(lengths, device="cuda")
+    q, k, v, (kp, vp), pages = _decode_inputs(gen, 8, h, h_kv, s, d, dtype,
+                                              lengths, page_size)
+    wide = torch.cat([pages, torch.full((8, 5), -1, dtype=torch.int32,
+                                        device="cuda")], dim=1).contiguous()
+    k1, v1 = (torch.cat([t[i:i + 1], torch.randn(
+        (1, 300, h_kv, d), generator=gen, device="cuda").to(dtype)], dim=1)
+        for t in (k, v))
+    one = slice(i, i + 1)
+    outs = {"linear, 8 slots": fd.flash_decode(q, k, v, lengths)[i],
+            "linear, alone, longer cache": fd.flash_decode(
+                q[one], k1, v1, lengths[one])[0],
+            "paged, 8 slots, wider table": fd.flash_decode_paged(
+                q, kp, vp, wide, lengths)[i],
+            "paged, alone": fd.flash_decode_paged(
+                q[one], kp, vp, pages[one].contiguous(), lengths[one])[0]}
+    torch.cuda.synchronize()
+    want = outs["linear, 8 slots"]
+    equal = {n: bool(torch.equal(o, want)) for n, o in outs.items()}
+    row = {"case": label, "invariance": True, "shape": [8, h, h_kv, s, d],
+           "dtype": str(dtype).replace("torch.", ""), "slot": i,
+           "length": int(lengths[i]), "others": lengths.tolist(),
+           "bitwise_equal_to_linear_8_slots": equal}
+    log("parity", **row)
+    if not all(equal.values()):
+        raise AssertionError(f"decode row depends on the batch in {label}: "
+                             f"{equal}")
 
 
 def _ssd_inputs(shape, dtype, seed=0):
@@ -682,18 +748,25 @@ def phase_parity():
     import numpy as np
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
-    main = parity_case("minicpm-2b", (1, 36, SEQ, 64), bf16, True, 0, True)
-    parity_case("qwen2-vl-2b", (1, 12, SEQ, 128), bf16, True, 0, True)
+    rows = [parity_case("minicpm-2b", (1, 36, SEQ, 64), bf16, True, 0, True)]
+    main = rows[0]
+    rows.append(parity_case("qwen2-vl-2b", (1, 12, SEQ, 128), bf16, True, 0,
+                            True))
     parity_case("ragged-f32", (1, 4, 1000, 128), f32, True, 0, False)
     parity_case("noncausal-f32", (2, 2, 320, 64), f32, False, 0, False)
-    parity_case("window", (1, 4, 1000, 64), bf16, True, 200, False)
-    # the bf16 tensor-core forward and dK/dV at the edges the f32 cases
-    # hold the scalar kernels to: a ragged S, no causal mask, a window
+    rows.append(parity_case("window", (1, 4, 1000, 64), bf16, True, 200,
+                            False))
+    # the bf16 tensor-core kernels at the edges the f32 cases hold the
+    # scalar kernels to: a ragged S, no causal mask, a window
     for d in (64, 112, 128):
-        parity_case(f"ragged-bf16 D={d}", (1, 4, 1000, d), bf16, True, 0,
-                    False)
-    parity_case("noncausal-bf16", (2, 2, 320, 64), bf16, False, 0, False)
-    parity_case("window D=128", (1, 4, 1000, 128), bf16, True, 200, False)
+        rows.append(parity_case(f"ragged-bf16 D={d}", (1, 4, 1000, d), bf16,
+                                True, 0, False))
+    for d in (64, 112, 128):
+        rows.append(parity_case(f"noncausal-bf16 D={d}", (2, 2, 320, d),
+                                bf16, False, 0, False))
+    for d in (112, 128):
+        rows.append(parity_case(f"window D={d}", (1, 4, 1000, d), bf16,
+                                True, 200, False))
     # the suffix prefill of a prefix-shared hit: the engine phase's
     # 1024-token system prefix, and ragged cases (an offset that is no
     # multiple of the 64-row tile) in f32 and bf16
@@ -718,20 +791,30 @@ def phase_parity():
     # one kv head, bf16, half the rows empty (the case whose per-row
     # error read NaN before the metric's floor skipped zero rows)
     decode_case("one kv head bf16", 2, 6, 1, 77, 64, bf16, [0, 77], False)
+    # a slot's row alone and among other slots, linear and paged
+    decode_invariance_case("qwen2-vl-2b", 12, 2, MAX_LEN, 128, bf16)
+    decode_invariance_case("minicpm-2b", 36, 36, MAX_LEN, 64, bf16)
     # zamba2-7b: the shared block's attention (32 heads of 112) and the
     # SSD at one layer's shape (112 heads, P = N = 64); a ragged S at the
     # reduced config's P 128, N 16; bf16 inputs
-    parity_case("zamba2-7b shared block", (1, 32, SEQ, 112), bf16, True, 0,
-                True)
+    rows.append(parity_case("zamba2-7b shared block", (1, 32, SEQ, 112),
+                            bf16, True, 0, True))
     parity_case("ragged-f32 D=112", (1, 4, 1000, 112), f32, True, 0, False)
+    # flash_bwd_dq_mma_kernel enters dS = P (dP - delta) into dS K as one
+    # bf16 operand
+    log("parity", dq_ds_form="one bf16 operand", bf16_cases=len(rows),
+        dq_row_rel_err_max=max(r["row_rel_err"]["flash_bwd_dq"]
+                               for r in rows),
+        function_row_rel_err_max=max(r["row_rel_err"]["function"]
+                                     for r in rows),
+        tol=TOL["bfloat16"])
     ssd_main = ssd_case("zamba2-7b", (1, SEQ, 112, 64, 64), f32, True)
     ssd_case("ragged S, P 128, N 16", (2, 1000, 4, 128, 16), f32, False)
     ssd_case("zamba2-7b bf16 inputs", (1, SEQ, 112, 64, 64), bf16, False)
-    errs, timing = main
-    errs = dict(errs, flash_decode=dec[0]["flash_decode"],
+    errs = dict(main["max_abs_err"], flash_decode=dec[0]["flash_decode"],
                 flash_decode_paged=dec_p[0]["flash_decode_paged"],
                 **ssd_main[0])
-    timing = dict(timing, flash_decode=dec[1]["flash_decode"],
+    timing = dict(main["timing"], flash_decode=dec[1]["flash_decode"],
                   flash_decode_paged=dec_p[1]["flash_decode_paged"],
                   **ssd_main[1])
     return errs, timing
@@ -1152,7 +1235,7 @@ def _profile_decode(cfg, params, prompt, steps: int = 8):
             continue
         n_kernels += e.count
         low = e.key.lower()
-        cat = ("decode (port kernel)" if "flash_decode_kernel" in e.key
+        cat = ("decode (port kernels)" if "flash_decode_" in e.key
                else "matmul (cuBLAS)" if any(
                    w in low for w in ("gemm", "gemv", "xmma", "cutlass",
                                       "nvjet"))

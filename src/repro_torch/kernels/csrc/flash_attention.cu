@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/flash_attention.py:
 //   flash_fwd_mma_kernel (bf16), flash_fwd_kernel (f32)
 //       <- _flash_fwd_kernel      (pallas_call in flash_attention_fwd)
-//   flash_bwd_dq_kernel (bf16 and f32)
+//   flash_bwd_dq_mma_kernel (bf16), flash_bwd_dq_kernel (f32)
 //       <- _flash_bwd_dq_kernel   (first pallas_call in flash_attention_bwd)
 //   flash_bwd_dkdv_mma_kernel (bf16), flash_bwd_dkdv_kernel (f32)
 //       <- _flash_bwd_dkdv_kernel (second pallas_call in flash_attention_bwd)
@@ -16,35 +16,38 @@
 //
 // Two designs, chosen by dtype:
 //
-// bf16, forward and dK/dV (flash_fwd_mma_kernel, flash_bwd_dkdv_mma_kernel):
-// tensor cores through warp-level mma.sync m16n8k16 (bf16 operands, f32
-// accumulators), operands from shared memory by ldmatrix (.trans where the
-// product wants the tile's columns), tiles brought in by 16-byte cp.async,
-// double-buffered so the next tile loads while this one computes. A block
-// is 4 warps over a 64-row tile, each warp owning 16 rows. The forward
-// keeps its q fragments in registers, streams 64-key K/V tiles, keeps the
-// online softmax (m, l) in registers (a row lives on one 4-lane quad and
-// reduces over it by xor shuffles) and feeds P, converted to bf16 in
-// registers, straight back as the A operand of P.V: the m16n8k16 C
-// fragment is laid out as the A fragment, so P never touches shared
-// memory. The dK/dV kernel keeps its K/V tile resident and computes
-// transposed, kv rows as the M dimension: S^T = K Q^T, P^T = exp(scale
-// S^T - lse), dP^T = V dO^T, dS^T = P^T (dP^T - delta), then dV += P^T dO
-// and dK += dS^T Q with P^T and dS^T as bf16 A operands; no atomics. Rows
-// are padded by 16 bytes so the 8 row addresses of an ldmatrix hit
-// distinct banks (D = 112 rows are 14 chunks of 16 bytes, which an XOR
-// swizzle over 8 chunks would not divide). Every sum is f32. dK/dV rounds
-// P^T and dS^T to bf16 as operands, as FlashAttention-2 does; the forward
-// enters P as bf16 hi + lo, two products, because the O it writes feeds
-// the backward's delta = rowsum(dO O), where dP - delta cancels.
+// bf16 (flash_fwd_mma_kernel, flash_bwd_dq_mma_kernel,
+// flash_bwd_dkdv_mma_kernel): tensor cores through warp-level mma.sync
+// m16n8k16 (bf16 operands, f32 accumulators), operands from shared memory
+// by ldmatrix (.trans where the product wants the tile's columns), tiles
+// brought in by 16-byte cp.async, double-buffered so the next tile loads
+// while this one computes. A block is 4 warps over a 64-row tile, each
+// warp owning 16 rows. The forward keeps its q fragments in registers,
+// streams 64-key K/V tiles, keeps the online softmax (m, l) in registers (a
+// row lives on one 4-lane quad and reduces over it by xor shuffles) and
+// feeds P, converted to bf16 in registers, straight back as the A operand
+// of P.V: the m16n8k16 C fragment is laid out as the A fragment, so P
+// never touches shared memory. dQ has the forward's shape: Q and dO stay
+// in shared memory, K/V tiles stream, S = Q K^T and dP = dO V^T, P =
+// exp(scale S - lse), dS = P (dP - delta) in registers, then dQ += dS K
+// with dS as the A operand. The dK/dV kernel keeps its K/V tile resident
+// and computes transposed, kv rows as the M dimension: S^T = K Q^T, P^T =
+// exp(scale S^T - lse), dP^T = V dO^T, dS^T = P^T (dP^T - delta), then dV
+// += P^T dO and dK += dS^T Q with P^T and dS^T as bf16 A operands. No
+// atomics: dQ and dK/dV are two kernels. Rows are padded by 16 bytes so
+// the 8 row addresses of an ldmatrix hit distinct banks (D = 112 rows are
+// 14 chunks of 16 bytes, which an XOR swizzle over 8 chunks would not
+// divide). Every sum is f32. dQ and dK/dV round dS (dS^T, P^T) to bf16 as
+// one operand, as FlashAttention-2 does; the forward enters P as bf16 hi + lo, two products, because the O
+// it writes feeds the backward's delta = rowsum(dO O), where dP - delta
+// cancels.
 //
-// f32, and bf16 dQ (flash_fwd_kernel, flash_bwd_dq_kernel,
-// flash_bwd_dkdv_kernel): the first, simple design. Each block keeps its q
-// (or kv) tile and the streaming kv (or q) tile in shared memory as f32
-// and computes scalar f32 FMAs over 4 x 4 (scores) and 4 x D/16 (outputs)
-// register micro-tiles of a 16 x 16 thread grid, rows padded by one
-// float. These hold the f32 parity cases to 1e-5, which TF32 tensor cores
-// would not; dQ in bf16 is the next to move to the tensor cores.
+// f32 (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkdv_kernel): the
+// first, simple design. Each block keeps its q (or kv) tile and the
+// streaming kv (or q) tile in shared memory as f32 and computes scalar f32
+// FMAs over 4 x 4 (scores) and 4 x D/16 (outputs) register micro-tiles of a
+// 16 x 16 thread grid, rows padded by one float. These hold the f32 parity
+// cases to 1e-5, which TF32 tensor cores would not.
 //
 // Both designs skip the tiles that the causal or window mask hides
 // entirely, which halves causal work. wgmma/TMA pipelines are later work.
@@ -93,13 +96,9 @@ constexpr int NT = 256;   // threads per block: a 16 x 16 grid
 constexpr int LS = BK + 1;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Mask {
   int s, causal, window;
@@ -600,6 +599,8 @@ constexpr size_t fwd_smem(int d) { return 5 * tile_elems(d) * sizeof(bf16); }
 constexpr size_t dkdv_smem(int d) {
   return 6 * tile_elems(d) * sizeof(bf16) + 4 * 64 * sizeof(float);
 }
+// Q and dO, and K and V twice each
+constexpr size_t dq_smem(int d) { return 6 * tile_elems(d) * sizeof(bf16); }
 
 template <int D>
 __global__ void __launch_bounds__(NTH, 2)
@@ -910,6 +911,149 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 }
 
+// dQ = scale dS K over the kv tiles a q tile sees, in one fixed order and
+// with no atomics. Q and dO stay in shared memory and their A fragments
+// are re-read each kv tile: with the dQ accumulator (ND x 4 floats) and
+// the S and dP tiles (2 x 8 x 4) in registers, resident Q and dO
+// fragments (2 x KD x 4 more) would not fit 255 registers at D = 128.
+// S = Q K^T and dP = dO V^T take K and V rows as B operands (frag_b), P
+// = exp2(scale log2(e) S - log2(e) lse) is masked on edge tiles only, and
+// dS = P (dP - delta) stays in the dP registers, from which it enters dS K
+// as one bf16 A operand (C layout == A layout), as dK/dV enters dS^T, with
+// K through frag_bt. That keeps dQ within the bf16 limit of chip_smoke.py's
+// parity phase, which reports its error; dS as bf16 hi + lo, as the
+// forward enters P, would cost a third product for a smaller error.
+
+template <int D>
+__global__ void __launch_bounds__(NTH, 2)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int s, int causal, int window, float scale) {
+  constexpr int LD = D + 8, KD = D / 16, ND = D / 8, T = 64 * LD;
+  extern __shared__ __align__(16) unsigned char smem_dq[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_dq);
+  bf16* sO = sQ + T;      // dO
+  bf16* sK = sO + T;      // two buffers
+  bf16* sV = sK + 2 * T;  // two buffers
+
+  // the q tiles with the most causal work go first
+  const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const size_t base = (size_t)bh * s * D;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wr = threadIdx.x / 32 * 16;  // the warp's first tile row
+  const Mask mask{s, causal, window};
+  const float sl2 = scale * LOG2E;
+
+  int lo, hi;
+  kv_range(q0, s, causal, window, lo, hi);
+  const int kt0 = lo / BK, kt1 = (hi + BK - 1) / BK;
+
+  tile_async<D>(sQ, q + base, q0, s);
+  tile_async<D>(sO, dout + base, q0, s);
+  if (kt0 < kt1) {
+    tile_async<D>(sK, k + base, kt0 * BK, s);
+    tile_async<D>(sV, v + base, kt0 * BK, s);
+  }
+  cp_async_commit();
+
+  // rows wr + g and wr + g + 8: lse times log2(e), and delta; 0 past s,
+  // where Q and dO are zero-filled, so dS = 1 (0 - 0) = 0
+  float l2[2], de[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + wr + g + 8 * i;
+    l2[i] = r < s ? lse[(size_t)bh * s + r] * LOG2E : 0.f;
+    de[i] = r < s ? delta[(size_t)bh * s + r] : 0.f;
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int buf = (kt - kt0) & 1, k0 = kt * BK;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt is in for every thread; tile kt - 1's readers are done
+    if (kt + 1 < kt1) {
+      tile_async<D>(sK + (buf ^ 1) * T, k + base, k0 + BK, s);
+      tile_async<D>(sV + (buf ^ 1) * T, v + base, k0 + BK, s);
+    }
+    cp_async_commit();
+    const bf16* tK = sK + buf * T;
+    const bf16* tV = sV + buf * T;
+
+    // S = Q K^T and dP = dO V^T: the warp's 16 rows by 64 keys
+    float st[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        st[n][e] = 0.f;
+        dp[n][e] = 0.f;
+      }
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks) {
+      uint32_t aq[4], ao[4];
+      frag_a<LD>(aq, sQ, wr, ks * 16);
+      frag_a<LD>(ao, sO, wr, ks * 16);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        frag_b<LD>(b, tK, np * 16, ks * 16);
+        mma(st[2 * np], aq, b[0], b[1]);
+        mma(st[2 * np + 1], aq, b[2], b[3]);
+        frag_b<LD>(b, tV, np * 16, ks * 16);
+        mma(dp[2 * np], ao, b[0], b[1]);
+        mma(dp[2 * np + 1], ao, b[2], b[3]);
+      }
+    }
+    // the mask, on tiles that cross the diagonal, the window edge or s
+    const bool edge = k0 + BK > s || (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+    // P = exp(scale S - lse), dS = P (dP - delta), in the dP registers
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(st[n][e], sl2, -l2[e >> 1]));
+        if (edge && !mask.ok(q0 + wr + g + (e >> 1) * 8, k0 + n * 8 + 2 * t + (e & 1))) p = 0.f;
+        dp[n][e] = p * (dp[n][e] - de[e >> 1]);
+      }
+
+    // dQ += dS K, dS from the registers as bf16 A fragments
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {pack(dp[2 * kk][0], dp[2 * kk][1]),
+                             pack(dp[2 * kk][2], dp[2 * kk][3]),
+                             pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                             pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int dd = 0; dd < KD; ++dd) {
+        uint32_t b[4];
+        frag_bt<LD>(b, tK, kk * 16, dd * 16);
+        mma(acc[2 * dd], a, b[0], b[1]);
+        mma(acc[2 * dd + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0 + wr + g + 8 * i;
+    if (qp < s) {
+      bf16* row = dq + base + (size_t)qp * D;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + 2 * t) =
+            __floats2bfloat162_rn(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+    }
+  }
+}
+
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq, int sk,
         int q_offset, int causal, int window, float scale, cudaStream_t st) {
@@ -921,6 +1065,21 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh
   flash_fwd_mma_kernel<D><<<grid, NTH, smem, st>>>((const bf16*)q, (const bf16*)k,
                                                    (const bf16*)v, (bf16*)o, lse, sq, sk,
                                                    q_offset, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+           const float* delta, void* dq, int bh, int s, int causal, int window, float scale,
+           cudaStream_t st) {
+  const size_t smem = dq_smem(D);
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((s + BQ - 1) / BQ, bh);
+  flash_bwd_dq_mma_kernel<D><<<grid, NTH, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dq,
+      s, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -969,14 +1128,18 @@ template <typename T, int D>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* delta, void* dq, int bh, int s, int causal, int window, float scale,
            cudaStream_t st) {
-  const size_t smem = bwd_smem(D);
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((s + BQ - 1) / BQ, bh);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
-                                                    (const T*)dout, lse, delta, (T*)dq, s,
-                                                    causal, window, scale);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return tc::bwd_dq<D>(q, k, v, dout, lse, delta, dq, bh, s, causal, window, scale, st);
+  } else {
+    const size_t smem = bwd_smem(D);
+    cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, D>, smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((s + BQ - 1) / BQ, bh);
+    flash_bwd_dq_kernel<T, D><<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
+                                                      (const T*)dout, lse, delta, (T*)dq, s,
+                                                      causal, window, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -1000,7 +1163,7 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, cons
 }  // namespace
 
 // dtype: 0 = float32 (the scalar kernels), 1 = bfloat16 (the tensor-core
-// forward and dK/dV, the scalar dQ). head_dim: 64, 112 (zamba2's shared
+// kernels). head_dim: 64, 112 (zamba2's shared
 // block) or 128; both designs step over D by 16 (the scalar kernels' NJ =
 // D / 16 columns a thread, the tensor cores' k-steps and n-tile pairs), so
 // D only has to be a multiple of 16. Anything else returns

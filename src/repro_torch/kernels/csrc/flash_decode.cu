@@ -2,15 +2,17 @@
 // a KV cache, over a linear cache or through a paged block table.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/flash_decode.py:
-//   flash_decode_kernel<.., false> <- _flash_decode_kernel       (pallas_call in flash_decode)
-//   flash_decode_kernel<.., true>  <- _flash_decode_paged_kernel (pallas_call in flash_decode_paged)
+//   flash_decode_split_kernel<.., false> <- _flash_decode_kernel       (pallas_call in flash_decode)
+//   flash_decode_split_kernel<.., true>  <- _flash_decode_paged_kernel (pallas_call in flash_decode_paged)
+//   (flash_decode_merge_kernel combines the splits of either)
 //
-// What bounds them. Each (batch, head) reads its valid K and V rows once
-// and does 4 D flops per row: about one flop per byte of bf16 cache, far
-// below the H100's ~295 bf16 operations per byte. The bound is the bytes of
-// the valid cache rows over the memory rate, so the design is about keeping
-// enough loads in flight: every lane loads 16 contiguous bytes of a row, a
-// group of D * sizeof(T) / 16 lanes (a "sub-warp") covers one row, and each
+// What bounds them. Each (batch, kv head) reads its valid K and V rows once
+// and does 4 D flops per row and query head: a few flops per byte of bf16
+// cache, far below the H100's ~295 bf16 operations per byte. The bound is
+// the bytes of the valid cache rows over the memory rate, so the design is
+// about keeping enough loads in flight on enough SMs, and reading each row
+// once: every lane loads 16 contiguous bytes of a row, a group of
+// D * sizeof(T) / 16 lanes (a "sub-warp") covers one row, and each
 // sub-warp has four K rows and four V rows in flight per step.
 //
 // Layout. q and o are (B, 1, H, D) (the model's layout); the linear cache is
@@ -18,26 +20,40 @@
 // (B, P) int32 block table. Query head h reads kv head h / (H / H_kv): the
 // kv heads are never repeated in memory.
 //
-// The TPU kernels walk the kv blocks as a sequential grid axis and carry
-// m / l / acc in VMEM scratch. Here one block of 8 warps owns one
-// (batch, head); its sub-warps take the keys in turn (sub-warp j takes keys
-// j, j + NSUB, j + 2 NSUB, ...), each keeping its own running m / l / acc in
-// registers, and the partial results merge in shared memory in a fixed
-// order. The order of every sum depends only on the key positions, so the
-// linear and the paged kernel give the same bits on the same cache rows.
-// Split-K across blocks, cp.async and TMA pipelines are later work.
+// Split-K ("flash-decoding"). The TPU kernels walk the kv blocks as a
+// sequential grid axis and carry m / l / acc in VMEM scratch. Here a block
+// of 8 warps owns one (slot, kv head, split): the SPLIT key positions
+// [i SPLIT, (i + 1) SPLIT) of the slot, and every query head of that kv
+// head's group (up to 8 of them; a larger group takes several blocks), so
+// each K and V row is read from memory once for the whole group. Its
+// sub-warps take the split's keys in turn (sub-warp j takes keys k0 + j,
+// k0 + j + NSUB, ...), each keeping a running m / l / acc per query head in
+// registers; the sub-warps of a warp merge by xor shuffles, the warps in
+// shared memory in warp order, and the block writes its split's (m, l,
+// acc) per query head to a workspace. A second kernel merges each (slot,
+// head)'s splits in split order. The paged kernel first stages the split's
+// block-table entries in shared memory, so no row load waits on a table
+// load from device memory.
+//
+// Which bits a row gets. Split boundaries and the merge order depend only
+// on key positions and the slot's length: never on B, H, the table width,
+// the cache's capacity or the card. So the linear and the paged kernel
+// give the same bits on the same cache rows, and a slot gives the same
+// bits alone and among other slots (engine == solo generation).
 //
 // Semantics follow the reference kernels: q is scaled by d**-0.5 in f32
 // before the dot product; only keys kpos < lengths[b] count (lengths past
 // the cache are clamped to it); a masked probability is exactly 0; the
 // output is acc / max(l, 1e-30) in q's type, so a slot with length 0 gives
 // 0. The ragged edge is masked in the kernel, not padded. The paged kernel
-// walks the table only up to ceil(length / page_size) pages and never
+// reads the table only for the pages a slot's length covers and never
 // dereferences a -1 entry: its keys count as masked (the reference clamps
 // -1 to page 0 and masks it by length, which gives the same result).
 //
-// Plain C interface for ctypes. Every entry returns cudaGetLastError()
-// after its launch (0 on success). Launches go to the caller's stream.
+// Plain C interface for ctypes. Every launching entry returns
+// cudaGetLastError() after its launches (0 on success); launches go to the
+// caller's stream. repro_flash_decode_workspace returns the size of the
+// split workspace, so the split size has one owner, this file.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -49,6 +65,7 @@ namespace {
 constexpr int NW = 8;          // warps per block
 constexpr int NT = NW * 32;    // threads per block
 constexpr int U = 4;           // keys in flight per sub-warp and step
+constexpr int SPLIT = 256;     // key positions per split
 
 template <typename T, int D>
 struct Geo {
@@ -80,145 +97,307 @@ __device__ __forceinline__ void unpack(const uint4& raw, float* out, const __nv_
 __device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16_rn(x); }
 
-// Where key row `pos` of (batch b, kv head kvh) lives, or nullptr when its
-// page is unassigned. Linear: k + ((b * S + pos) * H_kv + kvh) * D. Paged:
-// pool + ((page * page_size + pos % page_size) * H_kv + kvh) * D.
-template <typename T, int D, bool PAGED>
-struct Rows {
-  const T* base;
-  const int* table;   // this batch's row of the block table (paged only)
-  int rows, h_kv, kvh;
+// (m, l) of two partial softmaxes merged, a before b in the fixed order:
+// their weights exp(m_a - m) and exp(m_b - m), 0 for a part with no key
+__device__ __forceinline__ void weights(float ma, float mb, float& m, float& fa, float& fb) {
+  m = fmaxf(ma, mb);
+  fa = ma == -INFINITY ? 0.f : expf(ma - m);
+  fb = mb == -INFINITY ? 0.f : expf(mb - m);
+}
 
-  __device__ __forceinline__ const T* at(int pos) const {
+// Where key row `pos` of (batch b, kv head kvh) lives, as an element
+// offset that K and V share, or -1 when its page is unassigned. Linear,
+// from the slot's first row: (pos * H_kv + kvh) * D. Paged, from the
+// pool's: ((page * page_size + pos % page_size) * H_kv + kvh) * D, the
+// page from the split's table entries staged in shared memory (entry 0 is
+// page `first` of the slot's row of the table).
+template <int D, bool PAGED>
+struct Rows {
+  const int* table;   // the staged entries (paged only)
+  int first, rows, h_kv, kvh;
+
+  __device__ __forceinline__ long long at(int pos) const {
     if (PAGED) {
-      const int page = __ldg(table + pos / rows);
-      if (page < 0) return nullptr;
-      return base + (((size_t)page * rows + pos % rows) * h_kv + kvh) * D;
+      const int page = table[pos / rows - first];
+      if (page < 0) return -1;
+      return (((long long)page * rows + pos % rows) * h_kv + kvh) * D;
     }
-    return base + ((size_t)pos * h_kv + kvh) * D;
+    return ((long long)pos * h_kv + kvh) * D;
   }
 };
 
-template <typename T, int D, bool PAGED>
+// grid (B * H_kv * head chunks, splits). Writes, for each query head h of
+// its chunk, the split's m and l to part_ml[((b H + h) n_split + i) 2 ..]
+// and acc to part_acc[((b H + h) n_split + i) D ..]. A split that starts at
+// or past the slot's length writes nothing.
+template <typename T, int D, int GM, bool PAGED>
 __global__ void __launch_bounds__(NT)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const int* __restrict__ lengths, const int* __restrict__ pages,
-                    T* __restrict__ o, int h, int h_kv, int rows, int p_tab, float scale) {
+flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const int* __restrict__ lengths,
+                          const int* __restrict__ pages, float* __restrict__ part_acc,
+                          float* __restrict__ part_ml, int h, int h_kv, int rows, int p_tab,
+                          int n_split, float scale) {
   using G = Geo<T, D>;
   constexpr int EPL = G::EPL, LPK = G::LPK, KPW = G::KPW, NSUB = G::NSUB;
-  __shared__ float sm_acc[NSUB * D];
-  __shared__ float sm_m[NSUB], sm_l[NSUB];
+  __shared__ float sm_acc[NW][GM][D];
+  __shared__ float sm_m[NW][GM], sm_l[NW][GM];
+  __shared__ int sm_tab[SPLIT];
 
-  const int b = blockIdx.x / h, hh = blockIdx.x % h;
-  const int kvh = hh / (h / h_kv);
+  const int group = h / h_kv, n_hc = (group + GM - 1) / GM;
+  const int hc = blockIdx.x % n_hc, kvh = blockIdx.x / n_hc % h_kv;
+  const int b = blockIdx.x / (n_hc * h_kv), sp = blockIdx.y;
+  const int h0 = kvh * group + hc * GM;          // the chunk's first query head
+  const int gn = min(GM, group - hc * GM);       // its query heads
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub = lane / LPK, sl = lane % LPK;
-  const int sw = warp * KPW + sub;     // this sub-warp's index in the block
-  const int c0 = sl * EPL;             // first channel this lane holds
+  const int c0 = sl * EPL;                       // first channel this lane holds
 
   // linear: `rows` is S and the cache holds S rows; paged: `rows` is the
   // page size and the table covers p_tab pages
   const int cap = PAGED ? p_tab * rows : rows;
   const int n = min(max(lengths[b], 0), cap);
+  const int k0 = sp * SPLIT, k1 = min(k0 + SPLIT, n);
+  if (k0 >= n) return;  // the same for the whole block
 
-  Rows<T, D, PAGED> kr{PAGED ? k : k + (size_t)b * rows * h_kv * D,
-                       PAGED ? pages + (size_t)b * p_tab : nullptr, rows, h_kv, kvh};
-  Rows<T, D, PAGED> vr{PAGED ? v : v + (size_t)b * rows * h_kv * D, kr.table, rows, h_kv, kvh};
+  int first = 0;
+  if (PAGED) {
+    first = k0 / rows;
+    const int* tab = pages + (size_t)b * p_tab;
+    for (int i = threadIdx.x; i <= (k1 - 1) / rows - first; i += NT) sm_tab[i] = tab[first + i];
+    __syncthreads();
+  }
+  const Rows<D, PAGED> cache{sm_tab, first, rows, h_kv, kvh};
+  const size_t slot = PAGED ? 0 : (size_t)b * rows * h_kv * D;
+  const T* kb = k + slot + c0;
+  const T* vb = v + slot + c0;
 
-  float qf[EPL];
-  unpack(*reinterpret_cast<const uint4*>(q + ((size_t)b * h + hh) * D + c0), qf, q);
+  float qf[GM][EPL];
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) qf[e] *= scale;
-
-  float m = -INFINITY, l = 0.f, acc[EPL];
+  for (int j = 0; j < GM; ++j) {
+    if (j < gn) {
+      unpack(*reinterpret_cast<const uint4*>(q + ((size_t)b * h + h0 + j) * D + c0), qf[j], q);
+    } else {
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
+      for (int e = 0; e < EPL; ++e) qf[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) qf[j][e] *= scale;
+  }
+
+  float m[GM], l[GM], acc[GM][EPL];
+#pragma unroll
+  for (int j = 0; j < GM; ++j) {
+    m[j] = -INFINITY;
+    l[j] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[j][e] = 0.f;
+  }
 
   // the loop bound is the same for every lane of a warp, so the shuffles
   // below always run converged; a sub-warp past the end masks its keys
-  for (int it = warp * KPW; it < n; it += NSUB * U) {
+  for (int it = k0 + warp * KPW; it < k1; it += NSUB * U) {
     uint4 kraw[U], vraw[U];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int pos = it + sub + u * NSUB;
-      const T* kp = pos < n ? kr.at(pos) : nullptr;
-      ok[u] = kp != nullptr;
+      const long long off = pos < k1 ? cache.at(pos) : -1;
+      ok[u] = off >= 0;
       if (ok[u]) {
-        kraw[u] = *reinterpret_cast<const uint4*>(kp + c0);
-        vraw[u] = *reinterpret_cast<const uint4*>(vr.at(pos) + c0);
+        kraw[u] = *reinterpret_cast<const uint4*>(kb + off);
+        vraw[u] = *reinterpret_cast<const uint4*>(vb + off);
       } else {
         kraw[u] = make_uint4(0, 0, 0, 0);
         vraw[u] = make_uint4(0, 0, 0, 0);
       }
     }
-    float s[U];
+    float s[U][GM];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kf[EPL];
       unpack(kraw[u], kf, q);
-      float part = 0.f;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) part = fmaf(qf[e], kf[e], part);
+      for (int j = 0; j < GM; ++j) {
+        float part = 0.f;
 #pragma unroll
-      for (int off = LPK / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-      s[u] = ok[u] ? part : -INFINITY;
+        for (int e = 0; e < EPL; ++e) part = fmaf(qf[j][e], kf[e], part);
+#pragma unroll
+        for (int off = LPK / 2; off > 0; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        s[u][j] = ok[u] ? part : -INFINITY;
+      }
     }
-    float mx = m;
 #pragma unroll
-    for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u]);
-    if (mx == -INFINITY) continue;     // no valid key yet in this sub-warp
-    const float corr = expf(m - mx);   // 0 while m is still -inf
-    l *= corr;
+    for (int j = 0; j < GM; ++j) {
+      float mx = m[j];
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[e] *= corr;
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][j]);
+      // no valid key yet: m stays -inf and every p below is 0
+      const float corr = mx == -INFINITY ? 1.f : expf(m[j] - mx);  // 0 while m is -inf
+      l[j] *= corr;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[j][e] *= corr;
+      m[j] = mx;
+    }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const float p = ok[u] ? expf(s[u] - mx) : 0.f;
       float vf[EPL];
       unpack(vraw[u], vf, q);
-      l += p;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[e] = fmaf(p, vf[e], acc[e]);
+      for (int j = 0; j < GM; ++j) {
+        const float p = ok[u] ? expf(s[u][j] - m[j]) : 0.f;
+        l[j] += p;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[j][e] = fmaf(p, vf[e], acc[j][e]);
+      }
     }
-    m = mx;
   }
 
-  // merge the sub-warps' (m, l, acc) in a fixed order
+  // the warp's sub-warps, lower sub-warp first: both partners of a
+  // shuffle compute the same bits, and sub-warp 0 ends with the warp's
+  // (m, l, acc)
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) sm_acc[sw * D + c0 + e] = acc[e];
-  if (sl == 0) {
-    sm_m[sw] = m;
-    sm_l[sw] = l;
+  for (int off = LPK; off < 32; off <<= 1) {
+    const bool upper = (lane & off) != 0;
+#pragma unroll
+    for (int j = 0; j < GM; ++j) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[j], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[j], off);
+      const float ma = upper ? mo : m[j], mb = upper ? m[j] : mo;
+      const float la = upper ? lo : l[j], lb = upper ? l[j] : lo;
+      float mg, fa, fb;
+      weights(ma, mb, mg, fa, fb);
+      l[j] = fmaf(fb, lb, fa * la);
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[j][e], off);
+        const float aa = upper ? ao : acc[j][e], ab = upper ? acc[j][e] : ao;
+        acc[j][e] = fmaf(fb, ab, fa * aa);
+      }
+      m[j] = mg;
+    }
+  }
+  if (sub == 0) {
+#pragma unroll
+    for (int j = 0; j < GM; ++j) {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) sm_acc[warp][j][c0 + e] = acc[j][e];
+      if (sl == 0) {
+        sm_m[warp][j] = m[j];
+        sm_l[warp][j] = l[j];
+      }
+    }
   }
   __syncthreads();
-  if (threadIdx.x < D) {
-    const int c = threadIdx.x;
+
+  // the warps in warp order; the split's (m, l, acc) to the workspace
+  for (int i = threadIdx.x; i < gn * D; i += NT) {
+    const int j = i / D, c = i % D;
     float mg = -INFINITY;
-    for (int j = 0; j < NSUB; ++j) mg = fmaxf(mg, sm_m[j]);
+    for (int w = 0; w < NW; ++w) mg = fmaxf(mg, sm_m[w][j]);
     float lg = 0.f, ag = 0.f;
-    for (int j = 0; j < NSUB; ++j) {
-      const float f = sm_m[j] == -INFINITY ? 0.f : expf(sm_m[j] - mg);
-      lg = fmaf(f, sm_l[j], lg);
-      ag = fmaf(f, sm_acc[j * D + c], ag);
+    for (int w = 0; w < NW; ++w) {
+      const float f = sm_m[w][j] == -INFINITY ? 0.f : expf(sm_m[w][j] - mg);
+      lg = fmaf(f, sm_l[w][j], lg);
+      ag = fmaf(f, sm_acc[w][j][c], ag);
     }
-    store(o + ((size_t)b * h + hh) * D + c, ag / fmaxf(lg, 1e-30f));
+    const size_t at = ((size_t)b * h + h0 + j) * n_split + sp;
+    part_acc[at * D + c] = ag;
+    if (c == 0) {
+      part_ml[2 * at] = mg;
+      part_ml[2 * at + 1] = lg;
+    }
   }
 }
 
-template <typename T, int D, bool PAGED>
-int launch(const void* q, const void* k, const void* v, const int* lengths, const int* pages,
-           void* o, int b, int h, int h_kv, int rows, int p_tab, float scale, cudaStream_t st) {
-  if (b * h == 0) return 0;
-  flash_decode_kernel<T, D, PAGED><<<b * h, NT, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, lengths, pages, (T*)o, h, h_kv, rows, p_tab, scale);
+// grid B * H, D threads: each (slot, head)'s splits, the ceil(n / SPLIT)
+// that its length n covers, summed in split order (0 for a slot of length
+// 0). Each thread sums its channel; the splits' weights exp(m_i - m) are
+// taken D at a time into shared memory, so no thread walks the (m, l)
+// list alone.
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+flash_decode_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                          const int* __restrict__ lengths, T* __restrict__ o, int h, int cap,
+                          int n_split) {
+  __shared__ float sm_f[D], sm_l[D], sm_m[D / 32];
+  const int bh = blockIdx.x, c = threadIdx.x;
+  const int n = min(max(lengths[bh / h], 0), cap);
+  const int ns = (n + SPLIT - 1) / SPLIT;
+  const float* ml = part_ml + (size_t)bh * n_split * 2;
+  const float* pa = part_acc + (size_t)bh * n_split * D + c;
+  // the largest m: a max is exact in any order
+  float mg = -INFINITY;
+  for (int i = c; i < ns; i += D) mg = fmaxf(mg, ml[2 * i]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mg = fmaxf(mg, __shfl_xor_sync(0xffffffffu, mg, off));
+  if (c % 32 == 0) sm_m[c / 32] = mg;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < D / 32; ++w) mg = fmaxf(mg, sm_m[w]);
+  float lg = 0.f, ag = 0.f;
+  for (int i0 = 0; i0 < ns; i0 += D) {
+    __syncthreads();  // the previous chunk's readers are done
+    if (i0 + c < ns) {
+      const float m = ml[2 * (i0 + c)];
+      sm_f[c] = m == -INFINITY ? 0.f : expf(m - mg);
+      sm_l[c] = ml[2 * (i0 + c) + 1];
+    }
+    __syncthreads();
+    const int cnt = min(D, ns - i0);
+#pragma unroll 8
+    for (int i = 0; i < cnt; ++i) {
+      lg = fmaf(sm_f[i], sm_l[i], lg);
+      ag = fmaf(sm_f[i], pa[(size_t)(i0 + i) * D], ag);
+    }
+  }
+  store(o + (size_t)bh * D + c, ag / fmaxf(lg, 1e-30f));
+}
+
+template <typename T, int D, int GM, bool PAGED>
+int launch_gm(const void* q, const void* k, const void* v, const int* lengths, const int* pages,
+              void* o, float* work, int b, int h, int h_kv, int rows, int p_tab, float scale,
+              cudaStream_t st) {
+  const int cap = PAGED ? p_tab * rows : rows;
+  const int n_split = (cap + SPLIT - 1) / SPLIT;
+  float* part_acc = work;
+  float* part_ml = work + (size_t)b * h * n_split * D;
+  if (n_split > 0) {  // an empty cache has no split, and its merge writes 0
+    const int n_hc = (h / h_kv + GM - 1) / GM;
+    dim3 grid(b * h_kv * n_hc, n_split);
+    flash_decode_split_kernel<T, D, GM, PAGED><<<grid, NT, 0, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, lengths, pages, part_acc, part_ml, h, h_kv,
+        rows, p_tab, n_split, scale);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  flash_decode_merge_kernel<T, D><<<b * h, D, 0, st>>>(part_acc, part_ml, lengths, (T*)o, h, cap,
+                                                      n_split);
   return (int)cudaGetLastError();
+}
+
+// the query heads a block serves: the whole group, up to 8 heads; a larger
+// group takes ceil(group / 8) blocks of 8
+template <typename T, int D, bool PAGED, int GM = 8>
+int launch(const void* q, const void* k, const void* v, const int* lengths, const int* pages,
+           void* o, void* work, int b, int h, int h_kv, int rows, int p_tab, float scale,
+           cudaStream_t st) {
+  if (b * h == 0) return 0;
+  if (h_kv <= 0 || h % h_kv) return (int)cudaErrorInvalidValue;
+  if constexpr (GM > 1) {
+    if (h / h_kv < GM)
+      return launch<T, D, PAGED, GM - 1>(q, k, v, lengths, pages, o, work, b, h, h_kv, rows,
+                                         p_tab, scale, st);
+  }
+  return launch_gm<T, D, GM, PAGED>(q, k, v, lengths, pages, o, (float*)work, b, h, h_kv, rows,
+                                    p_tab, scale, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. Anything else
-// returns cudaErrorInvalidValue without launching.
+// returns cudaErrorInvalidValue without launching. `work` is the split
+// workspace the wrapper allocates, repro_flash_decode_workspace floats.
 #define DISPATCH(PAGED, ...)                                                         \
   if (dtype == 0 && d == 64) return launch<float, 64, PAGED>(__VA_ARGS__);           \
   if (dtype == 0 && d == 128) return launch<float, 128, PAGED>(__VA_ARGS__);         \
@@ -228,21 +407,31 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, cons
 
 extern "C" {
 
+// Floats of the split workspace for B slots of H heads of D and a cache of
+// `capacity` key positions a slot (S, or P * page_size when paged): (acc,
+// m, l) for every (slot, head, split), B * H * ceil(capacity / SPLIT) *
+// (D + 2). -1 for a negative size or one that does not fit an int.
+int repro_flash_decode_workspace(int b, int h, int d, int capacity) {
+  if (b < 0 || h < 0 || d < 0 || capacity < 0) return -1;
+  const long long n = (long long)b * h * ((capacity + SPLIT - 1LL) / SPLIT) * (d + 2);
+  return n > INT32_MAX ? -1 : (int)n;
+}
+
 // q, o: (B, 1, H, D); k, v: (B, S, H_kv, D); lengths: (B,) int32
 int repro_flash_decode(const void* q, const void* k, const void* v, const void* lengths, void* o,
-                       int b, int h, int h_kv, int s, int d, int dtype, float scale,
+                       void* work, int b, int h, int h_kv, int s, int d, int dtype, float scale,
                        void* stream) {
-  DISPATCH(false, q, k, v, (const int*)lengths, nullptr, o, b, h, h_kv, s, 0, scale,
+  DISPATCH(false, q, k, v, (const int*)lengths, nullptr, o, work, b, h, h_kv, s, 0, scale,
            (cudaStream_t)stream)
 }
 
 // q, o: (B, 1, H, D); k_pool, v_pool: (N, page_size, H_kv, D); pages: (B, P)
 // int32 with -1 = unassigned; lengths: (B,) int32
 int repro_flash_decode_paged(const void* q, const void* k_pool, const void* v_pool,
-                             const void* pages, const void* lengths, void* o, int b, int h,
-                             int h_kv, int page_size, int p_tab, int d, int dtype, float scale,
-                             void* stream) {
-  DISPATCH(true, q, k_pool, v_pool, (const int*)lengths, (const int*)pages, o, b, h, h_kv,
+                             const void* pages, const void* lengths, void* o, void* work, int b,
+                             int h, int h_kv, int page_size, int p_tab, int d, int dtype,
+                             float scale, void* stream) {
+  DISPATCH(true, q, k_pool, v_pool, (const int*)lengths, (const int*)pages, o, work, b, h, h_kv,
            page_size, p_tab, scale, (cudaStream_t)stream)
 }
 

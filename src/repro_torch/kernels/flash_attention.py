@@ -4,9 +4,9 @@
 
 Layout is the kernels' (B, H, S, D), contiguous and 16-byte aligned,
 bf16 or f32, head_dim 64, 112 (zamba2-7b's shared block) or 128. In bf16
-the forward and dK/dV run on the tensor cores (``mma.sync``, ``ldmatrix``,
-``cp.async``), dQ on the scalar f32 design; in f32 all three run the
-scalar design, which holds them to 1e-5 of the plain version. Each
+all three run on the tensor cores (``mma.sync``, ``ldmatrix``,
+``cp.async``); in f32 all three run the scalar design, which holds them
+to 1e-5 of the plain version. Each
 wrapper routes on the device of the tensor it is given: a CPU tensor
 takes the plain PyTorch version (``ref.py``); a CUDA tensor launches the
 kernel or raises, never falls back. ``LAUNCHES`` counts the kernel

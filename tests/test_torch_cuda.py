@@ -74,6 +74,42 @@ def test_kernels_match_plain(cuda, shape, dtype, causal, window, tol):
         assert _err(got, want) <= tol
 
 
+# the bf16 dQ kernel (tensor cores) against the plain backward at each
+# head_dim, ragged, non-causal and windowed; and the whole function
+# (kernels, delta in torch) against the same composition of plain
+# versions, where dQ's dS = P (dP - delta) cancels
+@pytest.mark.parametrize("d", [64, 112, 128])
+@pytest.mark.parametrize("shape,causal,window", [
+    ((1, 4, 1000), True, 0),
+    ((2, 2, 320), False, 0),
+    ((1, 4, 1000), True, 200),
+])
+def test_bf16_dq_matches_plain(cuda, d, shape, causal, window):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    q, k, v, do = (torch.randn((*shape, d), generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    fa.reset_launches()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dq_r = ref.attention_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves,
+                                do)
+    o_r, lse_r = ref.attention_ref(q, k, v, **kw)
+    delta_r = (do.float() * o_r.float()).sum(-1)
+    plain = (ref.attention_bwd_dq_ref(q, k, v, do, lse_r, delta_r, **kw),
+             *ref.attention_bwd_dkdv_ref(q, k, v, do, lse_r, delta_r, **kw))
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_bwd_dq"] == 2
+    assert dq.dtype == torch.bfloat16
+    assert _err(dq, dq_r) <= 2 ** -7
+    for got, want in zip(grads, plain):
+        assert _err(got, want) <= 2 ** -7
+
+
 @pytest.mark.parametrize("sk,start,d,dtype,tol", [
     (1000, 333, 128, torch.float32, 1e-5),
     (777, 700, 64, torch.bfloat16, 2 ** -7),
@@ -135,15 +171,17 @@ def test_model_attention_on_the_card_takes_the_kernels(cuda):
                            "flash_bwd_dkdv": 1}
 
 
-def _decode_inputs(gen, b, h, h_kv, s, d, dtype, page_size=16):
-    """q, linear k/v, ragged lengths (one 0, one past the cache), and the
-    same rows in a shuffled pool with -1 past each length."""
+def _decode_inputs(gen, b, h, h_kv, s, d, dtype, page_size=16, lengths=None):
+    """q, linear k/v, ragged lengths (unless given: one 0, one past the
+    cache), and the same rows in a shuffled pool with -1 past each
+    length."""
     dev = gen.device
     q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(dtype)
     k, v = (torch.randn((b, s, h_kv, d), generator=gen, device=dev)
             .to(dtype) for _ in range(2))
-    lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
-    lengths[0], lengths[-1] = 0, s + 7
+    if lengths is None:
+        lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
+        lengths[0], lengths[-1] = 0, s + 7
     p_tab = -(-s // page_size)
     n_pg = b * p_tab + 2
     perm = torch.randperm(n_pg, generator=gen, device=dev)
@@ -194,6 +232,39 @@ def test_decode_kernels_match_plain(cuda, b, h, h_kv, s, d, dtype, tol):
     fits = lengths <= s
     assert not fits.all()
     assert torch.equal(out[fits], out_p[fits])
+
+
+@pytest.mark.parametrize("h,h_kv,d,dtype", [
+    (12, 2, 128, torch.bfloat16),
+    (4, 4, 64, torch.bfloat16),
+    (6, 1, 64, torch.float32),
+])
+def test_decode_row_does_not_depend_on_the_batch(cuda, h, h_kv, d, dtype):
+    """A slot's row alone (B = 1, in a longer cache) and among 8 slots of
+    other lengths, through the linear and the paged kernel (among 8:
+    through a wider table): all four bitwise equal. The split-K kernels'
+    splits and merge order depend on the slot's length alone."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6)
+    b, s, i = 8, 1000, 2
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device=cuda)
+    lengths[i] = 777                    # several splits, a ragged last one
+    q, k, v, lengths, (kp, vp), pages = _decode_inputs(
+        gen, b, h, h_kv, s, d, dtype, lengths=lengths)
+    wide = torch.cat([pages, torch.full((b, 3), -1, dtype=torch.int32,
+                                        device=cuda)], 1).contiguous()
+    one = slice(i, i + 1)
+    k1, v1 = (torch.cat([t[one], torch.randn((1, 64, h_kv, d), generator=gen,
+                                             device=cuda).to(dtype)], 1)
+              for t in (k, v))
+    outs = [fd.flash_decode(q, k, v, lengths)[i],
+            fd.flash_decode(q[one], k1, v1, lengths[one])[0],
+            fd.flash_decode_paged(q, kp, vp, wide, lengths)[i],
+            fd.flash_decode_paged(q[one], kp, vp, pages[one].contiguous(),
+                                  lengths[one])[0]]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
 
 
 def test_decode_step_on_the_card_takes_the_kernels(cuda):
