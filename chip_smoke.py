@@ -30,7 +30,9 @@ failure exits non-zero:
               equal), and the SSD forward (with and without per-chunk
               states) and backward at zamba2's layer shape, at a ragged
               S with P 128, N 16, and with bf16 inputs, each also
-              against an f64 evaluation; times kernel, plain version
+              against an f64 evaluation, and each of their four passes
+              (state and chunk pass of each direction) alone against
+              its plain version; times kernel, plain version
               and the PyTorch library call (SDPA, a yardstick the port
               never calls; none exists for the SSD scan), and the host's
               time to issue one decode wrapper call.
@@ -126,6 +128,11 @@ SOURCES = {
     "ssd_fwd": "src/repro_torch/kernels/csrc/ssd.cu",
     "ssd_bwd": "src/repro_torch/kernels/csrc/ssd.cu",
 }
+# each SSD wrapper call launches its state pass, then its chunk pass
+SSD_PASSES = {"ssd_fwd": ("fwd_state", "fwd_chunk"),
+              "ssd_bwd": ("bwd_state", "bwd_chunk")}
+SSD_KERNELS = ("ssd_fwd_state_kernel", "ssd_fwd_chunk_kernel",
+               "ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel")
 # the hybrid: zamba2-7b at full width, 36 of its 81 layers (4 of its 9
 # units of nine Mamba2 layers and the shared block)
 HYBRID_LAYERS = 36
@@ -600,32 +607,42 @@ def _ssd_inputs(shape, dtype, seed=0):
 
 
 def _ssd_bounds(shape, dtype_name) -> dict:
-    """Least milliseconds each SSD kernel could take on an H100, at the
-    kernel's chunk L = 64: the larger of bytes over the memory rate (each
-    input read once, each output written once; the forward with its
-    per-chunk states, as training runs it) and the chunked algorithm's
+    """Least milliseconds each SSD wrapper and each of its passes could take
+    on an H100, at the kernels' chunk L = 64: the larger of bytes over the
+    memory rate (each input read once, each output written once; the
+    forward with its per-chunk states, as training runs it; a pass with the
+    states or d(states) it reads or writes) and the chunked algorithm's
     products over the f32 peak (the arithmetic is f32 whatever the input
-    type); the TF32 time beside it. The intra-chunk (L, L) products count
-    only the L (L + 1) / 2 causal pairs the output needs, as ``_bounds``
-    counts causal attention."""
+    type). Beside it the TF32 time, and ``bound_3xtf32_ms``, the route the
+    kernels take: three TF32 products for each f32 one. The intra-chunk
+    (L, L) products count only the L (L + 1) / 2 causal pairs the output
+    needs, as ``_bounds`` counts causal attention."""
     from repro_torch.kernels.ssd import CHUNK as L
     b, s, h, p, n = shape
     elt = 2 if dtype_name == "bfloat16" else 4
     x, row, bc = b * s * h * p * elt, b * s * h * elt, b * s * n * elt
     states = b * h * (s // L) * p * n * 4
+    grads = 2 * b * s * h * 4 + 2 * b * s * h * n * 4   # ddt, d(dA), dB, dC
     chunks = b * h * (s // L)
     pairs = L * (L + 1) // 2
+    lpn = 2 * L * p * n                 # flops of one (L,P)^T (L,N) product
     work = {
         # over the pairs: C B^T, m (x dt); C state^T, (x w)^T B
         "ssd_fwd": (2 * x + row + 2 * bc + 4 * h + states,
-                    chunks * 2 * (pairs * (n + p) + 2 * L * p * n)),
+                    chunks * (2 * pairs * (n + p) + 2 * lpn)),
         # over the pairs: scores, dscores^T C, dscores B (N), dxdt, dm
         # (P); dxw, y_inter, g, dyec s0, dyec^T C; dx, ddt, d(dA), dB and
         # dC partials out
-        "ssd_bwd": (3 * x + row + 2 * bc + 4 * h + states
-                    + 2 * b * s * h * 4 + 2 * b * s * h * n * 4,
-                    chunks * 2 * (pairs * (3 * n + 2 * p)
-                                  + 5 * L * p * n)),
+        "ssd_bwd": (3 * x + row + 2 * bc + 4 * h + states + grads,
+                    chunks * (2 * pairs * (3 * n + 2 * p) + 5 * lpn)),
+        # the passes: (x w)^T B; then the rest of the forward
+        "fwd_state": (x + row + bc + 4 * h + states, chunks * lpn),
+        "fwd_chunk": (2 * x + row + 2 * bc + 4 * h + states,
+                      chunks * (2 * pairs * (n + p) + lpn)),
+        # (dy e)^T C; then the rest of the backward, given d(states)
+        "bwd_state": (x + row + bc + 4 * h + states, chunks * lpn),
+        "bwd_chunk": (3 * x + row + 2 * bc + 4 * h + 2 * states + grads,
+                      chunks * (2 * pairs * (3 * n + 2 * p) + 4 * lpn)),
     }
     out = {}
     for name, (nbytes, flops) in work.items():
@@ -635,16 +652,78 @@ def _ssd_bounds(shape, dtype_name) -> dict:
                      "bound_by": "bytes" if t_bytes > t_ops
                      else "operations",
                      "bound_tf32_ms": max(t_bytes, flops / PEAK_TF32 * 1e3),
+                     "bound_3xtf32_ms": max(t_bytes,
+                                            3 * flops / PEAK_TF32 * 1e3),
                      "bound_bytes": nbytes, "bound_flops": flops}
     return out
 
 
+def ssd_pass_rows(args, dyp, timed, bounds):
+    """Each of the four SSD passes against its plain version on the same
+    inputs (a chunk pass gets the plain state pass's states), each output
+    also against an f64 evaluation of the plain version. Returns the rows
+    and, if ``timed``, each pass's kernel and plain times."""
+    import torch
+    from repro_torch.kernels import ref, ssd
+    x, dt, a, bm, cm = args
+    L = ssd.CHUNK
+    st_r = ref.ssd_fwd_state_ref(x, dt, a, bm, chunk=L)
+    ds_r = ref.ssd_bwd_state_ref(dt, a, cm, dyp, chunk=L)
+    x64, dt64, a64, bm64, cm64 = (t.double() for t in args)
+    dy64 = dyp.double()
+    st64 = ref.ssd_fwd_state_ref(x64, dt64, a64, bm64, chunk=L)
+    ds64 = ref.ssd_bwd_state_ref(dt64, a64, cm64, dy64, chunk=L)
+    passes = {  # name: (kernel, plain, f64, output names)
+        "fwd_state": (lambda: ssd.fwd_state(x, dt, a, bm),
+                      lambda: ref.ssd_fwd_state_ref(x, dt, a, bm, chunk=L),
+                      lambda: st64, ("states",)),
+        "fwd_chunk": (lambda: ssd.fwd_chunk(x, dt, a, bm, cm, st_r),
+                      lambda: ref.ssd_fwd_chunk_ref(x, dt, a, bm, cm, st_r,
+                                                    chunk=L),
+                      lambda: ref.ssd_fwd_chunk_ref(x64, dt64, a64, bm64,
+                                                    cm64, st64, chunk=L),
+                      ("y",)),
+        "bwd_state": (lambda: ssd.bwd_state(dt, a, cm, dyp),
+                      lambda: ref.ssd_bwd_state_ref(dt, a, cm, dyp, chunk=L),
+                      lambda: ds64, ("dstates",)),
+        "bwd_chunk": (lambda: ssd.bwd_chunk(x, dt, a, bm, cm, st_r, ds_r,
+                                            dyp),
+                      lambda: ref.ssd_bwd_chunk_ref(x, dt, a, bm, cm, st_r,
+                                                    ds_r, dyp, chunk=L),
+                      lambda: ref.ssd_bwd_chunk_ref(x64, dt64, a64, bm64,
+                                                    cm64, st64, ds64, dy64,
+                                                    chunk=L),
+                      ("dx", "ddt", "dda", "dbh", "dch")),
+    }
+    rows, timing = {}, {}
+    for name, (kern, plain, wide, names) in passes.items():
+        got, want, w64 = ((o,) if torch.is_tensor(o) else tuple(o)
+                          for o in (kern(), plain(), wide()))
+        torch.cuda.synchronize()
+        rows[name] = {
+            "row_rel_err": {n: _row_err(k, p)
+                            for n, k, p in zip(names, got, want)},
+            "tol": {n: TOL["bfloat16"] if k.dtype == torch.bfloat16
+                    else SSD_TOL for n, k in zip(names, got)},
+            "vs_f64": {n: {"kernel": _row_err(k, d), "plain": _row_err(p, d)}
+                       for n, k, p, d in zip(names, got, want, w64)},
+            "max_abs_err": {n: _abs_err(k, p)
+                            for n, k, p in zip(names, got, want)}}
+        if timed:
+            timing[name] = {"ms": cuda_time(kern, iters=10),
+                            "plain_ms": cuda_time(plain, iters=3),
+                            **bounds[name]}
+    return rows, timing
+
+
 def ssd_case(label, shape, dtype, timed):
-    """Both SSD kernels against their plain versions on the same inputs
+    """Both SSD wrappers against their plain versions on the same inputs
     (the forward with and without per-chunk states, the backward's raw
     outputs), each also against an f64 evaluation of the plain version;
-    then the whole padded autograd path against autograd of the plain
-    forward. If ``timed``: kernel and plain times and the bounds."""
+    the whole padded autograd path against autograd of the plain forward;
+    each of the four passes alone against its plain version
+    (``ssd_pass_rows``). If ``timed``: kernel and plain times of each
+    wrapper and each pass, and the bounds."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref, ssd
@@ -702,6 +781,11 @@ def ssd_case(label, shape, dtype, timed):
                 if not e <= tol(x)})
     if not da_err <= 1e-4:
         bad["function dA vs f64"] = da_err
+    bounds = _ssd_bounds(shape, dname)
+    pass_rows, pass_timing = ssd_pass_rows(args, dyp, timed, bounds)
+    bad.update({f"{name} {n}": e for name, r in pass_rows.items()
+                for n, e in r["row_rel_err"].items()
+                if not e <= r["tol"][n]})
     row = {"case": label, "shape": list(shape), "dtype": dname,
            "tol": {"float32": SSD_TOL, "bfloat16": TOL["bfloat16"]},
            "row_rel_err": errs,
@@ -711,7 +795,8 @@ def ssd_case(label, shape, dtype, timed):
            "function_dA_vs_f64": da_err,
            "max_abs_err": {n: _abs_err(k, p) for n, (k, p, _) in
                            outs.items()},
-           "y_without_states_equal": bool(torch.equal(y, y_only))}
+           "y_without_states_equal": bool(torch.equal(y, y_only)),
+           "passes": pass_rows}
     if bad or not row["y_without_states_equal"]:
         log("parity", **row)
         raise AssertionError(f"SSD kernel disagrees with its plain version "
@@ -720,7 +805,6 @@ def ssd_case(label, shape, dtype, timed):
     if not timed:
         log("parity", **row)
         return None
-    bounds = _ssd_bounds(shape, dname)
     fns = {
         "ssd_fwd": (lambda: ssd.ssd_fwd(*args, return_states=True),
                     lambda: ref.ssd_fwd_ref(*args, chunk=ssd.CHUNK,
@@ -734,7 +818,9 @@ def ssd_case(label, shape, dtype, timed):
         # no single PyTorch call computes the SSD scan: library_ms null
         timing[name] = {"ms": cuda_time(kern, iters=10),
                         "plain_ms": cuda_time(plain_fn, iters=3),
-                        "library_ms": None, **bounds[name]}
+                        "library_ms": None, **bounds[name],
+                        "passes": {p: pass_timing[p]
+                                   for p in SSD_PASSES[name]}}
     row["timing"] = timing
     log("parity", **row)
     abs_errs = {"ssd_fwd": max(row["max_abs_err"][n]
@@ -945,7 +1031,7 @@ def phase_pair(iters: int = 2):
 # phase 5: where a step's device time goes
 # ---------------------------------------------------------------------- #
 def _category(kernel: str) -> str:
-    if "ssd_fwd_kernel" in kernel or "ssd_bwd_kernel" in kernel:
+    if any(k in kernel for k in SSD_KERNELS):
         return "SSD (port kernels)"
     if "flash_fwd_" in kernel or "flash_bwd_" in kernel:
         return "attention (port kernels)"
@@ -1489,6 +1575,10 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if name in SSD_PASSES:
+            kernels[-1].update(
+                cuda_kernels=[f"ssd_{p}_kernel" for p in SSD_PASSES[name]],
+                bound_3xtf32_ms=t["bound_3xtf32_ms"], passes=t["passes"])
     log("done", seconds=time.perf_counter() - t0)
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,9 @@
 Routing is by the tensor's device inside each kernel wrapper: CUDA
 launches the kernel, CPU takes the plain version. Tiles are fixed (flash
 attention 64 x 64; decode one block per (slot, kv head, split of 256 key
-positions); the SSD chunk 64, one block per (batch, head)): the reference's block sizes and its
+positions); the SSD chunk 64, its state passes one block per (batch,
+head, 16 rows of P), its chunk passes one per (batch, head, chunk)): the
+reference's block sizes and its
 autotuned routing (``autotune.DEFAULTS``, ``_resolve``) are TPU choices,
 and autotuning is a later slice."""
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels (the reference's
 ``kernels/ref.py``: ``attention_ref`` plus the backward the Pallas kernels
 compute, ``flash_decode_ref`` and ``flash_decode_paged_ref``; ``ssd_ref``
-plus the chunked forward and backward the SSD kernels compute).
+plus the chunked forward and backward the SSD kernels compute, whole and
+as the kernels' four passes).
 Deliberately naive: full score matrices, f32 throughout.
 
 They take the kernels' (B, H, S, D) layout and masking (``score_mask``,
@@ -207,6 +208,52 @@ def ssd_fwd_ref(x, dt, A, Bm, Cm, *, chunk: int, return_states=False):
     return y
 
 
+def _bwd_chunk(xc, dtc, dAc, bc, cc, s0, ds1, dyc):
+    """Backward of one chunk (the reference's ``_ssd_bwd_kernel`` body)
+    from its input state s0 and the d(output state) ds1. Returns dx, ddt
+    (the direct part), d(dA), the per-head dB, dC partials and
+    d(input state)."""
+    cum, total, decay, scores, m = _chunk_fwd(xc, dtc, dAc, bc, cc)
+    xdt = xc * dtc[..., None]
+    expcum = torch.exp(cum)
+    etc = torch.exp(total[:, None] - cum)
+    w = etc * dtc
+    et = torch.exp(total)
+    # state update: state_out = exp(total) s0 + (x w)^T B
+    ds0 = et[..., None, None] * ds1
+    dtotal = et * (ds1 * s0).sum(dim=(-2, -1))                   # (b,h)
+    g = torch.einsum("blhp,bhpn->blhn", xc, ds1)
+    db = w[..., None] * g
+    dxw = torch.einsum("bln,bhpn->blhp", bc, ds1)
+    dx = w[..., None] * dxw
+    dw = (xc * dxw).sum(dim=-1)                                  # (b,L,h)
+    ddt = dw * etc
+    dcum = -(dw * w)
+    dtotal = dtotal + (dw * w).sum(dim=1)
+    # inter-chunk: y_inter = (C s0^T) exp(cum)
+    dyec = dyc * expcum[..., None]
+    y_inter = torch.einsum("bin,bhpn->bihp", cc, s0) * expcum[..., None]
+    dc = torch.einsum("bihp,bhpn->bihn", dyec, s0)
+    ds0 = ds0 + torch.einsum("bihp,bin->bhpn", dyec, cc)
+    dcum = dcum + (dyc * y_inter).sum(dim=-1)
+    # intra-chunk: y_intra = (scores * decay) @ (x dt)
+    dm = torch.einsum("bihp,bjhp->bijh", dyc, xdt)
+    dxdt = torch.einsum("bijh,bihp->bjhp", m, dyc)
+    dscores = dm * decay
+    dc = dc + torch.einsum("bijh,bjn->bihn", dscores, bc)
+    db = db + torch.einsum("bijh,bin->bjhn", dscores, cc)
+    ddiff = dm * scores[..., None] * decay   # masked: decay 0 -> 0
+    dcum = dcum + ddiff.sum(dim=2) - ddiff.sum(dim=1)
+    dx = dx + dxdt * dtc[..., None]
+    ddt = ddt + (dxdt * xc).sum(dim=-1)
+    # total = cum[-1], cum = cumsum(dA): d(dA) is the inclusive suffix sum
+    # of dcum
+    dcum = torch.cat([dcum[:, :-1], dcum[:, -1:] + dtotal[:, None]], dim=1)
+    csum = torch.cumsum(dcum, dim=1)
+    dda = csum[:, -1:] - csum + dcum
+    return dx, ddt, dda, db, dc, ds0
+
+
 def ssd_bwd_ref(x, dt, A, Bm, Cm, states, dy, *, chunk: int):
     """The reverse-chunk SSD backward (the reference's ``_ssd_bwd_kernel``
     math) carrying d(state) from the last chunk to the first. Inputs as
@@ -221,49 +268,106 @@ def ssd_bwd_ref(x, dt, A, Bm, Cm, states, dy, *, chunk: int):
     ds1 = torch.zeros_like(s0s[0])                       # d(final state)
     outs = []
     for c in reversed(range(len(xs))):
-        xc, dtc, dAc, bc, cc, s0, dyc = (xs[c], dts[c], dAs[c], bs[c],
-                                         cs[c], s0s[c], dys[c])
-        cum, total, decay, scores, m = _chunk_fwd(xc, dtc, dAc, bc, cc)
-        xdt = xc * dtc[..., None]
-        expcum = torch.exp(cum)
-        etc = torch.exp(total[:, None] - cum)
-        w = etc * dtc
-        et = torch.exp(total)
-        # state update: state_out = exp(total) s0 + (x w)^T B
-        ds0 = et[..., None, None] * ds1
-        dtotal = et * (ds1 * s0).sum(dim=(-2, -1))               # (b,h)
-        g = torch.einsum("blhp,bhpn->blhn", xc, ds1)
-        db = w[..., None] * g
-        dxw = torch.einsum("bln,bhpn->blhp", bc, ds1)
-        dx = w[..., None] * dxw
-        dw = (xc * dxw).sum(dim=-1)                              # (b,L,h)
-        ddt = dw * etc
-        dcum = -(dw * w)
-        dtotal = dtotal + (dw * w).sum(dim=1)
-        # inter-chunk: y_inter = (C s0^T) exp(cum)
-        dyec = dyc * expcum[..., None]
-        y_inter = torch.einsum("bin,bhpn->bihp", cc, s0) * expcum[..., None]
-        dc = torch.einsum("bihp,bhpn->bihn", dyec, s0)
-        ds0 = ds0 + torch.einsum("bihp,bin->bhpn", dyec, cc)
-        dcum = dcum + (dyc * y_inter).sum(dim=-1)
-        # intra-chunk: y_intra = (scores * decay) @ (x dt)
-        dm = torch.einsum("bihp,bjhp->bijh", dyc, xdt)
-        dxdt = torch.einsum("bijh,bihp->bjhp", m, dyc)
-        dscores = dm * decay
-        dc = dc + torch.einsum("bijh,bjn->bihn", dscores, bc)
-        db = db + torch.einsum("bijh,bin->bjhn", dscores, cc)
-        ddiff = dm * scores[..., None] * decay   # masked: decay 0 -> 0
-        dcum = dcum + ddiff.sum(dim=2) - ddiff.sum(dim=1)
-        dx = dx + dxdt * dtc[..., None]
-        ddt = ddt + (dxdt * xc).sum(dim=-1)
-        # total = cum[-1], cum = cumsum(dA): d(dA) is the inclusive
-        # suffix sum of dcum
-        dcum = torch.cat([dcum[:, :-1], dcum[:, -1:] + dtotal[:, None]],
-                         dim=1)
-        csum = torch.cumsum(dcum, dim=1)
-        dda = csum[:, -1:] - csum + dcum
-        outs.append((dx, ddt, dda, db, dc))
-        ds1 = ds0
+        *grads, ds1 = _bwd_chunk(xs[c], dts[c], dAs[c], bs[c], cs[c],
+                                 s0s[c], ds1, dys[c])
+        outs.append(grads)
     dx, ddt, dda, db, dc = (torch.cat(parts[::-1], dim=1)
                             for parts in zip(*outs))
+    return dx.to(x.dtype), ddt, dda, db, dc
+
+
+# The four passes of the kernels (``csrc/ssd.cu``), each with the inputs and
+# outputs of its C entry. The chunk passes fold the chunks into the batch
+# (every chunk is independent once its state is given); the state passes
+# compute every chunk's local term at once and then run the recurrence.
+def _fold(t, chunk: int, wide):
+    """(B, S, ...) -> (B nc, chunk, ...) in the arithmetic type."""
+    b, s = t.shape[:2]
+    if s % chunk:
+        raise ValueError(f"S = {s} is not a multiple of the chunk {chunk}")
+    return t.to(wide).reshape(b * (s // chunk), chunk, *t.shape[2:])
+
+
+def _fold_states(st, wide):
+    """(B, H, nc, P, N) -> (B nc, H, P, N)."""
+    b, h, nc, p, n = st.shape
+    return st.to(wide).transpose(1, 2).reshape(b * nc, h, p, n)
+
+
+def _unfold(t, b: int):
+    """(B nc, chunk, ...) -> (B, S, ...)."""
+    return t.reshape(b, -1, *t.shape[2:])
+
+
+def _cum(dt, A, chunk: int, wide):
+    """Folded dt, cumsum(A dt) within each chunk, and its total."""
+    dtc = _fold(dt, chunk, wide)
+    cum = torch.cumsum(A.to(wide)[None, None, :] * dtc, dim=1)
+    return dtc, cum, cum[:, -1]
+
+
+def _recurrence(local, total, b: int, reverse: bool):
+    """s_0 = 0, s_{c+1} = exp(total_c) s_c + local_c over the chunks (in
+    reverse order for the backward); returns the s entering each chunk,
+    (B, H, nc, P, N)."""
+    nc = local.shape[0] // b
+    local = local.reshape(b, nc, *local.shape[1:])
+    et = torch.exp(total).reshape(b, nc, -1)[..., None, None]
+    state = torch.zeros_like(local[:, 0])
+    out = [None] * nc
+    for c in (reversed(range(nc)) if reverse else range(nc)):
+        out[c] = state
+        state = et[:, c] * state + local[:, c]
+    return torch.stack(out, dim=2)
+
+
+def ssd_fwd_state_ref(x, dt, A, Bm, *, chunk: int):
+    """The forward state pass: each chunk's input state (B,H,nc,P,N) in
+    the arithmetic type, from x (B,S,H,P), dt (B,S,H), A (H,), Bm
+    (B,S,N)."""
+    wide = _wide(x)
+    dtc, cum, total = _cum(dt, A, chunk, wide)
+    w = torch.exp(total[:, None] - cum) * dtc                    # (b',L,h)
+    local = torch.einsum("blhp,bln->bhpn",
+                         _fold(x, chunk, wide) * w[..., None],
+                         _fold(Bm, chunk, wide))
+    return _recurrence(local, total, x.shape[0], reverse=False)
+
+
+def ssd_fwd_chunk_ref(x, dt, A, Bm, Cm, states, *, chunk: int):
+    """The forward chunk pass: y (B,S,H,P) in x's dtype from the inputs
+    and each chunk's input state (B,H,nc,P,N)."""
+    wide = _wide(x)
+    xc, dtc, bc, cc = (_fold(t, chunk, wide) for t in (x, dt, Bm, Cm))
+    dAc = A.to(wide)[None, None, :] * dtc
+    cum, _, _, _, m = _chunk_fwd(xc, dtc, dAc, bc, cc)
+    y_intra = torch.einsum("bijh,bjhp->bihp", m, xc * dtc[..., None])
+    y_inter = torch.einsum("bin,bhpn->bihp", cc,
+                           _fold_states(states, wide)) \
+        * torch.exp(cum)[..., None]
+    return _unfold(y_intra + y_inter, x.shape[0]).to(x.dtype)
+
+
+def ssd_bwd_state_ref(dt, A, Cm, dy, *, chunk: int):
+    """The backward state pass: each chunk's d(output state)
+    (B,H,nc,P,N) in the arithmetic type, from dt (B,S,H), A (H,), Cm
+    (B,S,N) and the cotangent dy (B,S,H,P)."""
+    wide = _wide(dy)
+    dtc, cum, total = _cum(dt, A, chunk, wide)
+    dyec = _fold(dy, chunk, wide) * torch.exp(cum)[..., None]
+    local = torch.einsum("bihp,bin->bhpn", dyec, _fold(Cm, chunk, wide))
+    return _recurrence(local, total, dy.shape[0], reverse=True)
+
+
+def ssd_bwd_chunk_ref(x, dt, A, Bm, Cm, states, dstates, dy, *,
+                      chunk: int):
+    """The backward chunk pass: ``ssd_bwd_ref``'s raw outputs from each
+    chunk's input state and d(output state) (B,H,nc,P,N)."""
+    wide = _wide(x)
+    xc, dtc, bc, cc, dyc = (_fold(t, chunk, wide)
+                            for t in (x, dt, Bm, Cm, dy))
+    dAc = A.to(wide)[None, None, :] * dtc
+    *raw, _ = _bwd_chunk(xc, dtc, dAc, bc, cc, _fold_states(states, wide),
+                         _fold_states(dstates, wide), dyc)
+    dx, ddt, dda, db, dc = (_unfold(t, x.shape[0]) for t in raw)
     return dx.to(x.dtype), ddt, dda, db, dc

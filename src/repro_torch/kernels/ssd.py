@@ -1,7 +1,15 @@
 """Mamba2 SSD chunk scan on the card: wrappers around the CUDA kernels of
-``csrc/ssd.cu`` (the forward, optionally keeping each chunk's input
-state, and the reverse-chunk backward) and the ``torch.autograd.Function``
-that joins them.
+``csrc/ssd.cu`` and the ``torch.autograd.Function`` that joins them.
+
+Each direction is two kernels, launched one after the other on the
+caller's stream by one wrapper call: ``ssd_fwd`` runs the forward state
+pass (each chunk's input state into ``states``, a scratch buffer when the
+caller does not keep it) and then the forward chunk pass (y);
+``ssd_bwd`` runs the backward state pass (each chunk's d(output state)
+into a scratch buffer) and then the backward chunk pass. ``fwd_state``,
+``fwd_chunk``, ``bwd_state`` and ``bwd_chunk`` launch one pass each, for
+the tests and the parity checks. ``LAUNCHES`` counts the calls of
+``ssd_fwd`` and ``ssd_bwd`` that reached their kernels, and only those.
 
 Model layout throughout: x (B,S,H,P), dt (B,S,H), A (H,) f32, Bm/Cm
 (B,S,N). x, dt, Bm and Cm share one dtype, f32 or bf16; the arithmetic
@@ -10,9 +18,8 @@ and the kernels take S a multiple of ``CHUNK``: ``ssd`` pads S with
 dt = 0, which makes the pad an exact no-op (dA = 0, so the carried state
 passes through, and x dt = 0 adds nothing). Each wrapper routes on the
 device of the tensor it is given: a CPU tensor takes the plain PyTorch
-version (``ref.py``) at the same chunk; a CUDA tensor launches the kernel
-or raises, never falls back. ``LAUNCHES`` counts the kernel launches of
-each wrapper, and only those.
+version (``ref.py``) at the same chunk; a CUDA tensor launches the kernels
+or raises, never falls back.
 
 Replaces the reference's ``kernels/mamba2_scan.py`` (``ssd_fwd``,
 ``ssd_bwd``, their ``custom_vjp`` and the padded entry ``ssd``). The
@@ -27,8 +34,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import ref
 from .flash_attention import _DTYPES
-from .ref import ssd_bwd_ref, ssd_fwd_ref
 
 LAUNCHES: Dict[str, int] = {"ssd_fwd": 0, "ssd_bwd": 0}
 CHUNK = 64
@@ -51,7 +58,8 @@ def _route(t: torch.Tensor) -> bool:
 
 
 def _check(name: str, x, dt, A, Bm, Cm, **extra) -> Tuple[int, ...]:
-    """Validate the kernel's inputs; returns (B, S, H, P, N)."""
+    """Validate the kernels' inputs; returns (B, S, H, P, N). x is the
+    (B,S,H,P) operand (dy for the backward state pass)."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {x.dtype} not supported "
                         "(float32 or bfloat16)")
@@ -66,9 +74,10 @@ def _check(name: str, x, dt, A, Bm, Cm, **extra) -> Tuple[int, ...]:
     if s % CHUNK:
         raise ValueError(f"{name}: S = {s} is not a multiple of the chunk "
                          f"{CHUNK}")
+    states = ((b, h, s // CHUNK, p, n), torch.float32)
     want = {"dt": ((b, s, h), x.dtype), "A": ((h,), torch.float32),
             "Bm": ((b, s, n), x.dtype), "Cm": ((b, s, n), x.dtype),
-            "states": ((b, h, s // CHUNK, p, n), torch.float32),
+            "states": states, "dstates": states,
             "dy": (tuple(x.shape), x.dtype)}
     for key, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm),
                    *extra.items()):
@@ -79,49 +88,123 @@ def _check(name: str, x, dt, A, Bm, Cm, **extra) -> Tuple[int, ...]:
             raise ValueError(f"{name}: {key} on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+        # the tiles come in by 16-byte copies
+        if key not in ("dt", "A") and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
     return b, s, h, p, n
 
 
-def _launch(entry: str, counter: str, *args) -> None:
+def _launch(entry: str, *args) -> None:
     from .build import launch
     launch("ssd", entry, *args)
-    LAUNCHES[counter] += 1
 
 
-def ssd_fwd(x, dt, A, Bm, Cm, *, return_states=False):
-    """y (B,S,H,P) in x's dtype [, each chunk's input state (B,H,nc,P,N)
-    f32, the backward's residual]. S a multiple of ``CHUNK``."""
-    if not _route(x):
-        return ssd_fwd_ref(x, dt, A, Bm, Cm, chunk=CHUNK,
-                           return_states=return_states)
-    b, s, h, p, n = _check("ssd_fwd", x, dt, A, Bm, Cm)
-    y = torch.empty_like(x)
-    states = (torch.empty((b, h, s // CHUNK, p, n), dtype=torch.float32,
-                          device=x.device) if return_states else None)
-    _launch("repro_ssd_fwd", "ssd_fwd", x.data_ptr(), dt.data_ptr(),
-            A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-            None if states is None else states.data_ptr(), b, s, h, p, n,
+def _empty_states(x, b, s, h, p, n):
+    return torch.empty((b, h, s // CHUNK, p, n), dtype=torch.float32,
+                       device=x.device)
+
+
+def _fwd_state(x, dt, A, Bm, dims):
+    states = _empty_states(x, *dims)
+    _launch("repro_ssd_fwd_state", x.data_ptr(), dt.data_ptr(),
+            A.data_ptr(), Bm.data_ptr(), states.data_ptr(), *dims,
             _DTYPES[x.dtype])
-    return (y, states) if return_states else y
+    return states
 
 
-def ssd_bwd(x, dt, A, Bm, Cm, states, dy):
-    """The raw backward: dx (B,S,H,P) in x's dtype; the direct part of
-    ddt, d(dA) (B,S,H) and the per-head dB, dC partials (B,S,H,N), f32."""
-    if not _route(x):
-        return ssd_bwd_ref(x, dt, A, Bm, Cm, states, dy, chunk=CHUNK)
-    b, s, h, p, n = _check("ssd_bwd", x, dt, A, Bm, Cm, states=states,
-                           dy=dy)
+def _fwd_chunk(x, dt, A, Bm, Cm, states, dims):
+    y = torch.empty_like(x)
+    _launch("repro_ssd_fwd_chunk", x.data_ptr(), dt.data_ptr(),
+            A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), states.data_ptr(),
+            y.data_ptr(), *dims, _DTYPES[x.dtype])
+    return y
+
+
+def _bwd_state(dt, A, Cm, dy, dims):
+    dstates = _empty_states(dy, *dims)
+    _launch("repro_ssd_bwd_state", dt.data_ptr(), A.data_ptr(),
+            Cm.data_ptr(), dy.data_ptr(), dstates.data_ptr(), *dims,
+            _DTYPES[dy.dtype])
+    return dstates
+
+
+def _bwd_chunk(x, dt, A, Bm, Cm, states, dstates, dy, dims):
+    b, s, h, p, n = dims
     dx = torch.empty_like(x)
     ddt, dda = (torch.empty((b, s, h), dtype=torch.float32, device=x.device)
                 for _ in range(2))
     dbh, dch = (torch.empty((b, s, h, n), dtype=torch.float32,
                             device=x.device) for _ in range(2))
-    _launch("repro_ssd_bwd", "ssd_bwd", x.data_ptr(), dt.data_ptr(),
+    _launch("repro_ssd_bwd_chunk", x.data_ptr(), dt.data_ptr(),
             A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), states.data_ptr(),
-            dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dda.data_ptr(),
-            dbh.data_ptr(), dch.data_ptr(), b, s, h, p, n, _DTYPES[x.dtype])
+            dstates.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            dda.data_ptr(), dbh.data_ptr(), dch.data_ptr(), *dims,
+            _DTYPES[x.dtype])
     return dx, ddt, dda, dbh, dch
+
+
+def fwd_state(x, dt, A, Bm):
+    """The forward state pass alone: each chunk's input state
+    (B,H,nc,P,N) f32."""
+    if not _route(x):
+        return ref.ssd_fwd_state_ref(x, dt, A, Bm, chunk=CHUNK)
+    return _fwd_state(x, dt, A, Bm, _check("fwd_state", x, dt, A, Bm, Bm))
+
+
+def fwd_chunk(x, dt, A, Bm, Cm, states):
+    """The forward chunk pass alone: y (B,S,H,P) from each chunk's input
+    state."""
+    if not _route(x):
+        return ref.ssd_fwd_chunk_ref(x, dt, A, Bm, Cm, states, chunk=CHUNK)
+    dims = _check("fwd_chunk", x, dt, A, Bm, Cm, states=states)
+    return _fwd_chunk(x, dt, A, Bm, Cm, states, dims)
+
+
+def bwd_state(dt, A, Cm, dy):
+    """The backward state pass alone: each chunk's d(output state)
+    (B,H,nc,P,N) f32."""
+    if not _route(dy):
+        return ref.ssd_bwd_state_ref(dt, A, Cm, dy, chunk=CHUNK)
+    return _bwd_state(dt, A, Cm, dy, _check("bwd_state", dy, dt, A, Cm, Cm))
+
+
+def bwd_chunk(x, dt, A, Bm, Cm, states, dstates, dy):
+    """The backward chunk pass alone: ``ssd_bwd``'s raw outputs from each
+    chunk's input state and d(output state)."""
+    if not _route(x):
+        return ref.ssd_bwd_chunk_ref(x, dt, A, Bm, Cm, states, dstates, dy,
+                                     chunk=CHUNK)
+    dims = _check("bwd_chunk", x, dt, A, Bm, Cm, states=states,
+                  dstates=dstates, dy=dy)
+    return _bwd_chunk(x, dt, A, Bm, Cm, states, dstates, dy, dims)
+
+
+def ssd_fwd(x, dt, A, Bm, Cm, *, return_states=False):
+    """y (B,S,H,P) in x's dtype [, each chunk's input state (B,H,nc,P,N)
+    f32, the backward's residual]. S a multiple of ``CHUNK``. On the card:
+    the forward state pass, then the chunk pass."""
+    if not _route(x):
+        return ref.ssd_fwd_ref(x, dt, A, Bm, Cm, chunk=CHUNK,
+                               return_states=return_states)
+    dims = _check("ssd_fwd", x, dt, A, Bm, Cm)
+    states = _fwd_state(x, dt, A, Bm, dims)
+    y = _fwd_chunk(x, dt, A, Bm, Cm, states, dims)
+    LAUNCHES["ssd_fwd"] += 1
+    return (y, states) if return_states else y
+
+
+def ssd_bwd(x, dt, A, Bm, Cm, states, dy):
+    """The raw backward: dx (B,S,H,P) in x's dtype; the direct part of
+    ddt, d(dA) (B,S,H) and the per-head dB, dC partials (B,S,H,N), f32.
+    On the card: the backward state pass into a (B,H,nc,P,N) f32 scratch
+    buffer, then the chunk pass."""
+    if not _route(x):
+        return ref.ssd_bwd_ref(x, dt, A, Bm, Cm, states, dy, chunk=CHUNK)
+    dims = _check("ssd_bwd", x, dt, A, Bm, Cm, states=states, dy=dy)
+    dstates = _bwd_state(dt, A, Cm, dy, dims)
+    raw = _bwd_chunk(x, dt, A, Bm, Cm, states, dstates, dy, dims)
+    LAUNCHES["ssd_bwd"] += 1
+    return raw
 
 
 def combine_grads(x, dt, A, Bm, Cm, raw):
@@ -136,8 +219,8 @@ def combine_grads(x, dt, A, Bm, Cm, raw):
 
 
 class SSD(torch.autograd.Function):
-    """Forward kernel (keeping each chunk's input state) plus the
-    backward kernel. Under activation checkpointing the forward runs
+    """The forward (keeping each chunk's input state) plus the backward.
+    Under activation checkpointing the forward runs
     twice per layer and micro-batch: once in the forward pass and once
     in the recompute."""
 

@@ -330,6 +330,39 @@ def test_ssd_kernels_match_plain(cuda, b, s, h, p, n, dtype):
         assert _err(got, want) <= tol
 
 
+@pytest.mark.parametrize("b,s,h,p,n,dtype", [
+    (1, 256, 3, 64, 64, torch.float32),
+    (2, 512, 4, 128, 16, torch.float32),
+    (1, 192, 2, 64, 16, torch.bfloat16),
+    (1, 128, 2, 128, 64, torch.bfloat16),
+])
+def test_ssd_passes_match_plain(cuda, b, s, h, p, n, dtype):
+    """Each of the four SSD kernels alone against its pass's plain version
+    on the same inputs (a chunk pass gets the plain state pass's output);
+    the passes launched alone count no wrapper launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    x, dt, a, bm, cm, dy = _ssd_inputs(gen, b, s, h, p, n, dtype)
+    L = ssd.CHUNK
+    st = ref.ssd_fwd_state_ref(x, dt, a, bm, chunk=L)
+    ds = ref.ssd_bwd_state_ref(dt, a, cm, dy, chunk=L)
+    ssd.reset_launches()
+    pairs = [
+        (ssd.fwd_state(x, dt, a, bm), st),
+        (ssd.fwd_chunk(x, dt, a, bm, cm, st),
+         ref.ssd_fwd_chunk_ref(x, dt, a, bm, cm, st, chunk=L)),
+        (ssd.bwd_state(dt, a, cm, dy), ds),
+        *zip(ssd.bwd_chunk(x, dt, a, bm, cm, st, ds, dy),
+             ref.ssd_bwd_chunk_ref(x, dt, a, bm, cm, st, ds, dy, chunk=L)),
+    ]
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES == {"ssd_fwd": 0, "ssd_bwd": 0}
+    for got, want in pairs:
+        assert got.dtype == want.dtype and got.shape == want.shape
+        tol = 2 ** -7 if got.dtype == torch.bfloat16 else 1e-4
+        assert _err(got, want) <= tol
+
+
 def test_ssd_unsupported_shapes_raise(cuda):
     x = torch.zeros((1, 64, 2, 32), device=cuda)
     dt = torch.zeros((1, 64, 2), device=cuda)

@@ -1,5 +1,6 @@
-"""The port stands alone: importing every module of ``repro_torch`` and
-``chip_smoke`` loads neither JAX nor the reference package."""
+"""The port stands alone: importing every module of ``repro_torch``,
+``chip_smoke`` and ``ssd_variants`` loads neither JAX nor the reference
+package."""
 import os
 import subprocess
 import sys
@@ -15,6 +16,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import ssd_variants
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                 or m == "repro" or m.startswith("repro."))
@@ -41,7 +43,8 @@ def test_port_imports_neither_jax_nor_reference():
 def test_no_source_of_the_port_names_jax_or_the_reference():
     """A lazy import inside a function would escape the import check."""
     bad = []
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "ssd_variants.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
     for path in paths:
