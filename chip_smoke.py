@@ -7,11 +7,13 @@ Drives the port's paths (``src/repro_torch``) at full published width:
 co-scheduled, gradient-accumulated training of minicpm-2b and
 qwen2-vl-2b with attention on the hand-written CUDA flash kernels;
 training of the hybrid zamba2-7b (36 of its 81 layers) on the CUDA
-Mamba2 SSD chunk-scan kernels and the flash kernels at head_dim 112; and
+Mamba2 SSD chunk-scan kernels and the flash kernels at head_dim 112;
 serving (prefill, KV-cache decode and the continuous-batching
 ``DecodeEngine``) on the flash-attention forward and the two CUDA
-flash-decode kernels. Phases, in order; each prints its own line and any
-failure exits non-zero:
+flash-decode kernels; and serving zamba2-7b at all 81 layers, its
+prefill on the SSD forward with a state in and out and the flash
+forward, its decode on the flash-decode kernels at head_dim 112. Phases,
+in order; each prints its own line and any failure exits non-zero:
 
 1. build    - builds the three kernel libraries (flash attention, flash
               decode, SSD) from ``src/repro_torch/kernels/csrc``, one
@@ -32,7 +34,13 @@ failure exits non-zero:
               S with P 128, N 16, and with bf16 inputs, each also
               against an f64 evaluation, and each of their four passes
               (state and chunk pass of each direction) alone against
-              its plain version; times kernel, plain version
+              its plain version; the SSD forward with an initial and a
+              final state (a prefill's form) at one zamba2 layer
+              (S 1024), at a ragged S and from bf16 inputs, against its
+              plain version and an f64 evaluation; decode at head_dim
+              112 (zamba2's shared block), linear and paged, f32 and
+              bf16, and a slot's row alone and among 8 slots; times
+              kernel, plain version
               and the PyTorch library call (SDPA, a yardstick the port
               never calls; none exists for the SSD scan), and the host's
               time to issue one decode wrapper call.
@@ -64,6 +72,16 @@ failure exits non-zero:
               excluded), pages, hit rate, launch counts. Then the same
               three engines and solo generation on a reduced config in
               f32, where every token identity is required.
+10. hybrid_serve - zamba2-7b at 81 layers, bf16: ``generate`` at batch 4,
+              1024-token prompts, max_len 4096, 64 greedy tokens (prefill
+              ms, ms per decode step, tokens/s, peak memory; launches
+              exact: ``ssd_fwd`` 81 and ``flash_fwd`` 9 per prefill,
+              ``flash_decode`` 9 per step); a profile of 8 decode steps;
+              the ``DecodeEngine`` with 8 slots, dense and paged, on 16
+              requests of 256-1024 prompt tokens and 32-64 new tokens:
+              paged == dense and engine == solo ``generate`` (required);
+              then dense, paged and solo on a reduced zamba2 (18 layers)
+              in f32, every token identity required.
 
 Then the card's name and power limit, the ``kernels`` JSON line, and as
 the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -133,6 +151,14 @@ SSD_PASSES = {"ssd_fwd": ("fwd_state", "fwd_chunk"),
               "ssd_bwd": ("bwd_state", "bwd_chunk")}
 SSD_KERNELS = ("ssd_fwd_state_kernel", "ssd_fwd_chunk_kernel",
                "ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel")
+# the decode kernels' template instances: T f32 or bf16, D 64, 112 or 128,
+# G (query heads a block serves) 1 to 8
+DECODE_INSTANCES = {
+    name: [f"flash_decode_split_kernel<T, D, G, {paged}>",
+           "flash_decode_merge_kernel<T, D>", "T in {float, __nv_bfloat16}",
+           "D in {64, 112, 128}", "G in 1..8"]
+    for name, paged in (("flash_decode", "false"),
+                        ("flash_decode_paged", "true"))}
 # the hybrid: zamba2-7b at full width, 36 of its 81 layers (4 of its 9
 # units of nine Mamba2 layers and the shared block)
 HYBRID_LAYERS = 36
@@ -630,6 +656,10 @@ def _ssd_bounds(shape, dtype_name) -> dict:
         # over the pairs: C B^T, m (x dt); C state^T, (x w)^T B
         "ssd_fwd": (2 * x + row + 2 * bc + 4 * h + states,
                     chunks * (2 * pairs * (n + p) + 2 * lpn)),
+        # the prefill's form: no per-chunk states kept, an initial state
+        # read and the final state written
+        "ssd_prefill": (2 * x + row + 2 * bc + 4 * h + 2 * b * h * p * n * 4,
+                        chunks * (2 * pairs * (n + p) + 2 * lpn)),
         # over the pairs: scores, dscores^T C, dscores B (N), dxdt, dm
         # (P); dxw, y_inter, g, dyec s0, dyec^T C; dx, ddt, d(dA), dB and
         # dC partials out
@@ -830,6 +860,74 @@ def ssd_case(label, shape, dtype, timed):
     return abs_errs, timing
 
 
+def ssd_state_case(label, shape, dtype, timed):
+    """The SSD forward from an initial state and with the final state, as
+    a prefill continuing a cached state runs it: ``ssd_prefill`` (any S,
+    padded with dt = 0 rows) against the plain version on the same padded
+    inputs, each output also against an f64 evaluation; the state pass
+    alone with both states against its plain version; and, from a zero
+    initial state, y bitwise the training forward's (the null pointers).
+    If ``timed``: kernel and plain times and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, ssd
+    x, dt, a, bm, cm, _ = _ssd_inputs(shape, dtype, seed=2)
+    b, s, h, p, n = shape
+    L = ssd.CHUNK
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    init = torch.randn((b, h, p, n), generator=gen, device="cuda")
+    pad = -s % L
+    args = [F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), a,
+            F.pad(bm, (0, 0, 0, pad)), F.pad(cm, (0, 0, 0, pad))]
+    y, final = ssd.ssd_prefill(x, dt, a, bm, cm, init)
+    y_r, f_r = ref.ssd_fwd_ref(*args, chunk=L, init_state=init,
+                               return_final=True)
+    y64, f64 = ref.ssd_fwd_ref(*(t.double() for t in args), chunk=L,
+                               init_state=init.double(), return_final=True)
+    st, fin = ssd.fwd_state(*args[:4], init_state=init, return_final=True)
+    st_r, fin_r = ref.ssd_fwd_state_ref(*args[:4], chunk=L, init_state=init,
+                                        return_final=True)
+    y_zero, _ = ssd.ssd_prefill(x, dt, a, bm, cm, torch.zeros_like(init))
+    y_train = ssd.ssd(x, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    outs = {"y": (y, y_r[:, :s], y64[:, :s]), "final": (final, f_r, f64),
+            "fwd_state states": (st, st_r, None),
+            "fwd_state final": (fin, fin_r, None)}
+
+    def tol(t):
+        return TOL["bfloat16"] if t.dtype == torch.bfloat16 else SSD_TOL
+    errs = {k: _row_err(g, w) for k, (g, w, _) in outs.items()}
+    bad = {k: e for k, e in errs.items() if not e <= tol(outs[k][0])}
+    row = {"case": label, "state_in_out": True, "shape": list(shape),
+           "dtype": dname, "tol": {"float32": SSD_TOL,
+                                   "bfloat16": TOL["bfloat16"]},
+           "row_rel_err": errs,
+           "vs_f64": {k: {"kernel": _row_err(g, d), "plain": _row_err(w, d)}
+                      for k, (g, w, d) in outs.items() if d is not None},
+           "max_abs_err": {k: _abs_err(g, w)
+                           for k, (g, w, _) in outs.items()},
+           "chunk0_state_is_init": bool(torch.equal(st[:, :, 0], init)),
+           "zero_init_y_equals_training": bool(torch.equal(y_zero,
+                                                           y_train))}
+    if bad or not (row["chunk0_state_is_init"]
+                   and row["zero_init_y_equals_training"]):
+        log("parity", **row)
+        raise AssertionError(f"SSD with a state in and out disagrees in "
+                             f"{label}: {bad}, {row}")
+    if timed:
+        row["timing"] = {
+            "ms": cuda_time(lambda: ssd.ssd_prefill(x, dt, a, bm, cm, init),
+                            iters=10),
+            "plain_ms": cuda_time(lambda: ref.ssd_fwd_ref(
+                *args, chunk=L, init_state=init, return_final=True), iters=3),
+            "library_ms": None,
+            **_ssd_bounds(shape, dname)["ssd_prefill"]}
+    log("parity", **row)
+    return row
+
+
 def phase_parity():
     import numpy as np
     import torch
@@ -897,12 +995,36 @@ def phase_parity():
     ssd_main = ssd_case("zamba2-7b", (1, SEQ, 112, 64, 64), f32, True)
     ssd_case("ragged S, P 128, N 16", (2, 1000, 4, 128, 16), f32, False)
     ssd_case("zamba2-7b bf16 inputs", (1, SEQ, 112, 64, 64), bf16, False)
+    # hybrid serving: the SSD forward with a state in and out (a prefill
+    # continuing a cached state) at one zamba2 layer and a ragged S; decode
+    # at the shared block's head_dim 112, linear and paged, f32 and bf16
+    ssd_prefill = ssd_state_case("zamba2-7b prefill", (1, 1024, 112, 64, 64),
+                                 f32, True)
+    ssd_state_case("ragged S, P 128, N 16", (2, 1000, 4, 128, 16), f32,
+                   False)
+    ssd_state_case("zamba2-7b prefill, bf16 inputs", (1, 1000, 112, 64, 64),
+                   bf16, False)
+    lens = rng.permutation([1, MAX_LEN] + rng.integers(
+        1, MAX_LEN + 1, 6).tolist()).tolist()
+    dec_z = decode_case("zamba2-7b shared-block decode", 8, 32, 32, MAX_LEN,
+                        112, bf16, lens, True)
+    decode_case("D=112 f32", 4, 32, 32, 1000, 112, f32, [0, 1000, 313, 1],
+                False)
+    decode_case("D=112 GQA 4:1 bf16", 3, 8, 2, 333, 112, bf16, [333, 1, 0],
+                False, page_size=32)
+    decode_invariance_case("zamba2-7b", 32, 32, MAX_LEN, 112, bf16)
     errs = dict(main["max_abs_err"], flash_decode=dec[0]["flash_decode"],
                 flash_decode_paged=dec_p[0]["flash_decode_paged"],
                 **ssd_main[0])
     timing = dict(main["timing"], flash_decode=dec[1]["flash_decode"],
                   flash_decode_paged=dec_p[1]["flash_decode_paged"],
                   **ssd_main[1])
+    for name in ("flash_decode", "flash_decode_paged"):
+        timing[name]["at_d112"] = dict(dec_z[1][name],
+                                       max_abs_err=dec_z[0][name])
+    timing["ssd_fwd"]["with_state_in_out"] = dict(
+        ssd_prefill["timing"], shape=ssd_prefill["shape"],
+        max_abs_err=max(ssd_prefill["max_abs_err"].values()))
     return errs, timing
 
 
@@ -1033,10 +1155,12 @@ def phase_pair(iters: int = 2):
 def _category(kernel: str) -> str:
     if any(k in kernel for k in SSD_KERNELS):
         return "SSD (port kernels)"
+    if "flash_decode_" in kernel:
+        return "decode (port kernels)"
     if "flash_fwd_" in kernel or "flash_bwd_" in kernel:
         return "attention (port kernels)"
     low = kernel.lower()
-    if any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
+    if any(w in low for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
         return "matmul (cuBLAS)"
     return "other (elementwise, reductions, copies)"
 
@@ -1295,9 +1419,10 @@ def phase_serve():
     return launches["scan"]
 
 
-def _profile_decode(cfg, params, prompt, steps: int = 8):
+def _profile_decode(cfg, params, prompt, steps: int = 8, phase="serve"):
     """Device time of ``steps`` decode steps after a prefill, by kernel
-    category, and the device's busy share of their wall time."""
+    category (``_category``), and the device's busy share of their wall
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1320,15 +1445,11 @@ def _profile_decode(cfg, params, prompt, steps: int = 8):
         if e.device_type != DeviceType.CUDA:
             continue
         n_kernels += e.count
-        low = e.key.lower()
-        cat = ("decode (port kernels)" if "flash_decode_" in e.key
-               else "matmul (cuBLAS)" if any(
-                   w in low for w in ("gemm", "gemv", "xmma", "cutlass",
-                                      "nvjet"))
-               else "other (elementwise, reductions, copies)")
+        cat = _category(e.key)
         by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total / 1e3
     device_ms = sum(by_cat.values())
-    log("serve", profile=True, decode_steps=steps, wall_ms=wall_ms,
+    log(phase, profile=True, model=cfg.name, n_layers=cfg.n_layers,
+        decode_steps=steps, wall_ms=wall_ms,
         device_ms=device_ms if device_ms else "not measured",
         busy_share=device_ms / wall_ms if device_ms else "not measured",
         kernels_per_step=n_kernels / steps, by_category_ms=by_cat)
@@ -1382,13 +1503,25 @@ def _run_engine(cfg, params, reqs, expect_launches, **kw):
     return toks, st, launches, wall
 
 
+def _serve_counts(cfg):
+    """(attention blocks, SSD calls) of one pass over the layers: one
+    attention block per layer, or, for the hybrid, one per application
+    of the shared block and one SSD per Mamba2 layer."""
+    if cfg.family == "hybrid":
+        return cfg.n_units, cfg.n_layers
+    return cfg.n_layers, 0
+
+
 def _engine_launches(cfg, segment, n_reqs, paged):
     # every admission prefills once through the flash forward (one-shot
-    # for a miss, at a query offset for a prefix hit); every slot-step
-    # of every segment decodes once per layer
+    # for a miss, at a query offset for a prefix hit) and, for the
+    # hybrid, the SSD; every slot-step of every segment decodes once per
+    # attention block
     decode = "flash_decode_paged" if paged else "flash_decode"
-    return lambda st: {decode: cfg.n_layers * st["segments"] * segment,
-                       "flash_fwd": cfg.n_layers * n_reqs}
+    n_attn, n_ssd = _serve_counts(cfg)
+    return lambda st: {decode: n_attn * st["segments"] * segment,
+                       "flash_fwd": n_attn * n_reqs,
+                       "ssd_fwd": n_ssd * n_reqs}
 
 
 def _cublas_rows(cfg, params, ms) -> dict:
@@ -1424,21 +1557,23 @@ def _cublas_rows(cfg, params, ms) -> dict:
     return out
 
 
-def _engine_small():
-    """Dense, paged and prefix-shared engines and solo ``generate`` on a
-    reduced qwen2-vl-2b in f32, on the card: every token identity the
-    CPU tests pin must hold here too. A 40-token shared prefix is 2.5
-    pages of 16, so hits map two shared pages and fork the boundary
-    page copy-on-write; ``debug=True`` audits the paging invariants
-    every segment."""
+def _engine_small(name="qwen2-vl-2b", n_layers=None):
+    """The engines and solo ``generate`` on a reduced ``name`` in f32, on
+    the card: every token identity the CPU tests pin must hold here too.
+    Dense and paged engines for every family, and for dense and vlm also
+    the prefix-shared one: a 40-token shared prefix is 2.5 pages of 16,
+    so hits map two shared pages and fork the boundary page copy-on-write;
+    ``debug=True`` audits the paging invariants every segment."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import init_params
-    cfg = dataclasses.replace(get_config("qwen2-vl-2b").reduced(),
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    share = cfg.family in ("dense", "vlm")
     params = init_params(cfg, 2)
     rng = np.random.default_rng(2)
     system = rng.integers(0, cfg.vocab, 40)
@@ -1446,12 +1581,12 @@ def _engine_small():
         0, cfg.vocab, int(rng.integers(3, 30)))]), int(rng.integers(8, 25)))
         for _ in range(8)]
     kw = dict(n_slots=4, max_len=128, segment=8)
+    ways = {"dense": {}, "paged": {"paged": True, "page_size": 16}}
+    if share:
+        ways["prefix_shared"] = {"paged": True, "page_size": 16,
+                                 "prefix_share": True, "debug": True}
     outs, stats = {}, {}
-    for way, extra in (("dense", {}),
-                       ("paged", {"paged": True, "page_size": 16}),
-                       ("prefix_shared", {"paged": True, "page_size": 16,
-                                          "prefix_share": True,
-                                          "debug": True})):
+    for way, extra in ways.items():
         outs[way], stats[way], _, _ = _run_engine(
             cfg, params, reqs, _engine_launches(cfg, 8, len(reqs),
                                                 extra.get("paged")),
@@ -1459,17 +1594,21 @@ def _engine_small():
     solo = [serve.generate(cfg, params, torch.as_tensor(p)[None, :],
                            max_new_tokens=n, max_len=128)[0].tolist()
             for p, n in reqs]
-    st = stats["prefix_shared"]
-    row = {"config": "qwen2-vl-2b reduced, float32",
-           "requests": len(reqs), "prefix_hits": st["prefix_hits"],
-           "cow_forks": st["cow_forks"],
+    row = {"config": f"{cfg.name}, {cfg.n_layers} layers, float32",
+           "requests": len(reqs),
            "paged_vs_dense": _agreement(outs["paged"], outs["dense"]),
-           "prefix_shared_vs_private": _agreement(outs["prefix_shared"],
-                                                  outs["paged"]),
            "engine_vs_solo": _agreement(outs["dense"], solo)}
-    log("engine", small=True, **row)
-    if not (outs["paged"] == outs["dense"] == outs["prefix_shared"]
-            == solo) or st["prefix_hits"] == 0 or st["cow_forks"] == 0:
+    ok = outs["paged"] == outs["dense"] == solo
+    if share:
+        st = stats["prefix_shared"]
+        row.update(prefix_hits=st["prefix_hits"], cow_forks=st["cow_forks"],
+                   prefix_shared_vs_private=_agreement(
+                       outs["prefix_shared"], outs["paged"]))
+        ok = (ok and outs["prefix_shared"] == outs["paged"]
+              and st["prefix_hits"] > 0 and st["cow_forks"] > 0)
+    log("hybrid_serve" if cfg.family == "hybrid" else "engine", small=True,
+        **row)
+    if not ok:
         raise AssertionError(f"engine (reduced, f32): identities fail "
                              f"{row}")
 
@@ -1544,6 +1683,117 @@ def phase_engine():
     return launches["paged"]
 
 
+# ---------------------------------------------------------------------- #
+# phase 10: serving the hybrid at full depth
+# ---------------------------------------------------------------------- #
+def _hybrid_requests(cfg):
+    """16 prompts of 256-1024 tokens, 32-64 new tokens each, from one
+    seed."""
+    import numpy as np
+    rng = np.random.default_rng(4)
+    return [(rng.integers(0, cfg.vocab, int(rng.integers(256, 1025))),
+             int(rng.integers(32, 65))) for _ in range(ENGINE_REQUESTS)]
+
+
+def phase_hybrid_serve():
+    """zamba2-7b at all 81 layers and full width, bf16: ``generate`` at
+    batch 4 (1024-token prompts, 64 greedy tokens; prefill and decode
+    times, launch counts exact), a profile of 8 decode steps, the
+    ``DecodeEngine`` dense and paged on 16 requests (paged == dense and
+    engine == solo ``generate``, bitwise); then the same identities on a
+    reduced zamba2 in f32."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params, param_count
+    t_phase = time.perf_counter()
+    cfg = get_config("zamba2-7b")
+    n_attn, n_ssd = _serve_counts(cfg)
+    params = init_params(cfg, 3)
+    log("hybrid_serve", config=cfg.name, n_layers=cfg.n_layers,
+        units=cfg.n_units, layers_per_unit=cfg.pattern_unit(),
+        params=param_count(params), dtype=cfg.dtype, reduced="nothing",
+        batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
+        max_len=MAX_LEN)
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)))
+    serve.generate(cfg, params, prompt[:, :64], max_new_tokens=2,
+                   max_len=128)                       # warm-up
+    # prefill alone, for its time and its launches
+    cache = init_cache(cfg, SERVE_BATCH, MAX_LEN)
+    torch.cuda.synchronize()
+    _reset_all()
+    t0 = time.perf_counter()
+    serve.prefill_one_shot(cfg, params, prompt.cuda(), cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = _expect_launches(
+        "hybrid_serve prefill", {"ssd_fwd": n_ssd, "flash_fwd": n_attn})
+    del cache
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = serve.generate(cfg, params, prompt, max_new_tokens=SERVE_NEW,
+                          max_len=MAX_LEN)
+    wall = time.perf_counter() - t0
+    launches = _expect_launches("hybrid_serve generate", {
+        "ssd_fwd": n_ssd, "flash_fwd": n_attn,
+        "flash_decode": n_attn * SERVE_NEW})
+    if tuple(toks.shape) != (SERVE_BATCH, SERVE_NEW) or int(
+            toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise AssertionError(f"hybrid_serve: bad tokens {toks}")
+    decode_s = wall - prefill_ms / 1e3
+    log("hybrid_serve", model=cfg.name, engine="scan", wall_s=wall,
+        prefill_ms=prefill_ms, prefill_launches=prefill_launches,
+        ms_per_decode_step=decode_s * 1e3 / SERVE_NEW,
+        decode_tokens_per_s=SERVE_BATCH * SERVE_NEW / decode_s,
+        launches=launches, first_tokens=toks[0, :8].tolist(),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    _profile_decode(cfg, params, prompt, phase="hybrid_serve")
+
+    reqs = _hybrid_requests(cfg)
+    ways = {"dense": {}, "paged": {"paged": True, "page_size": 16}}
+    outs, paths = {}, {"generate": launches}
+    for way, kw in ways.items():
+        outs[way], st, paths[f"engine {way}"], eng_wall = _run_engine(
+            cfg, params, reqs,
+            _engine_launches(cfg, ENGINE_SEGMENT, len(reqs),
+                             kw.get("paged")),
+            n_slots=ENGINE_SLOTS, max_len=MAX_LEN, segment=ENGINE_SEGMENT,
+            **kw)
+        log("hybrid_serve", model=cfg.name, way=way, wall_s=eng_wall,
+            requests=len(reqs), segments=st["segments"],
+            decode_s=st["decode_seconds"],
+            decode_tokens_per_s=(sum(len(o) for o in outs[way])
+                                 / st["decode_seconds"]),
+            slot_steps_per_s=(ENGINE_SLOTS * ENGINE_SEGMENT * st["segments"]
+                              / st["decode_seconds"]),
+            peak_active_slots=st["peak_active_slots"],
+            peak_pages=st.get("peak_pages_in_use"),
+            launches=paths[f"engine {way}"],
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.empty_cache()
+    solo = [serve.generate(cfg, params, torch.as_tensor(reqs[i][0])[None, :],
+                           max_new_tokens=reqs[i][1],
+                           max_len=MAX_LEN)[0].tolist()
+            for i in (0, len(reqs) - 1)]
+    summary = {"paged_vs_dense": _agreement(outs["paged"], outs["dense"]),
+               "engine_vs_solo": _agreement(
+                   [outs["dense"][0], outs["dense"][-1]], solo)}
+    log("hybrid_serve", summary=True, **summary)
+    for key, agree in summary.items():
+        if agree["identical"] != agree["of"]:
+            raise AssertionError(f"hybrid_serve: {key} {agree}")
+    del params
+    torch.cuda.empty_cache()
+    _engine_small("zamba2-7b", n_layers=18)
+    log("hybrid_serve", seconds=time.perf_counter() - t_phase)
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1566,6 +1816,7 @@ def main() -> int:
     phase_accum()
     launches["flash_decode"] = phase_serve()["flash_decode"]
     launches["flash_decode_paged"] = phase_engine()["flash_decode_paged"]
+    serve_paths = phase_hybrid_serve()
     kernels = []
     for name in REPLACES:
         t = timing[name]
@@ -1574,11 +1825,21 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            # the hybrid-serving path's own counts, each read just after
+            # its run
+            "launches_hybrid_serve": {
+                path: n[name] for path, n in serve_paths.items()
+                if n.get(name)}})
         if name in SSD_PASSES:
             kernels[-1].update(
                 cuda_kernels=[f"ssd_{p}_kernel" for p in SSD_PASSES[name]],
                 bound_3xtf32_ms=t["bound_3xtf32_ms"], passes=t["passes"])
+        if name in DECODE_INSTANCES:
+            kernels[-1]["instantiations"] = DECODE_INSTANCES[name]
+        for key in ("at_d112", "with_state_in_out"):
+            if key in t:
+                kernels[-1][key] = t[key]
     log("done", seconds=time.perf_counter() - t0)
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

@@ -41,7 +41,7 @@ LIBRARIES = {
         "repro_flash_decode_paged": [_P] * 7 + [_I] * 7 + [_F, _P],
     }),
     "ssd": (["ssd.cu"], {
-        "repro_ssd_fwd_state": [_P] * 5 + [_I] * 6 + [_P],
+        "repro_ssd_fwd_state": [_P] * 7 + [_I] * 6 + [_P],
         "repro_ssd_fwd_chunk": [_P] * 7 + [_I] * 6 + [_P],
         "repro_ssd_bwd_state": [_P] * 5 + [_I] * 6 + [_P],
         "repro_ssd_bwd_chunk": [_P] * 13 + [_I] * 6 + [_P],

@@ -12,8 +12,10 @@
 // the bytes of the valid cache rows over the memory rate, so the design is
 // about keeping enough loads in flight on enough SMs, and reading each row
 // once: every lane loads 16 contiguous bytes of a row, a group of
-// D * sizeof(T) / 16 lanes (a "sub-warp") covers one row, and each
-// sub-warp has four K rows and four V rows in flight per step.
+// D * sizeof(T) / 16 lanes, rounded up to a power of two (a "sub-warp"),
+// covers one row, and each sub-warp has four K rows and four V rows in
+// flight per step. At D = 112 a sub-warp's last lanes (4 of 32 in f32,
+// 2 of 16 in bf16) hold no channel and sit out the loads.
 //
 // Layout. q and o are (B, 1, H, D) (the model's layout); the linear cache is
 // (B, S, H_kv, D) and the paged pools are (N, page_size, H_kv, D) with a
@@ -67,13 +69,20 @@ constexpr int NT = NW * 32;    // threads per block
 constexpr int U = 4;           // keys in flight per sub-warp and step
 constexpr int SPLIT = 256;     // key positions per split
 
+constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
+
+// A row of D elements takes D / EPL lanes of 16 bytes; a sub-warp is that
+// rounded up to a power of two, so it divides the warp. At D = 112 the
+// last lanes of a sub-warp hold no channel (f32: 28 of 32 lanes live,
+// bf16: 14 of 16): they load nothing and add 0 to every sum.
 template <typename T, int D>
 struct Geo {
   static constexpr int EPL = 16 / sizeof(T);   // elements per lane: 16 bytes
-  static constexpr int LPK = D / EPL;          // lanes per key row
+  static constexpr int LPK = pow2_at_least(D / EPL);  // lanes per key row
   static constexpr int KPW = 32 / LPK;         // key rows per warp and step
   static constexpr int NSUB = NW * KPW;        // sub-warps per block
-  static_assert(LPK >= 1 && LPK <= 32 && 32 % LPK == 0, "unsupported head_dim");
+  static constexpr bool FULL_ROW = LPK * EPL == D;  // every lane holds channels
+  static_assert(D % EPL == 0 && LPK <= 32, "unsupported head_dim");
 };
 
 // 16 bytes of a row -> EPL floats
@@ -151,6 +160,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub = lane / LPK, sl = lane % LPK;
   const int c0 = sl * EPL;                       // first channel this lane holds
+  const bool live = G::FULL_ROW || c0 < D;       // this lane holds channels
 
   // linear: `rows` is S and the cache holds S rows; paged: `rows` is the
   // page size and the table covers p_tab pages
@@ -174,7 +184,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qf[GM][EPL];
 #pragma unroll
   for (int j = 0; j < GM; ++j) {
-    if (j < gn) {
+    if (j < gn && live) {
       unpack(*reinterpret_cast<const uint4*>(q + ((size_t)b * h + h0 + j) * D + c0), qf[j], q);
     } else {
 #pragma unroll
@@ -203,7 +213,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int pos = it + sub + u * NSUB;
       const long long off = pos < k1 ? cache.at(pos) : -1;
       ok[u] = off >= 0;
-      if (ok[u]) {
+      if (ok[u] && live) {
         kraw[u] = *reinterpret_cast<const uint4*>(kb + off);
         vraw[u] = *reinterpret_cast<const uint4*>(vb + off);
       } else {
@@ -280,8 +290,10 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (sub == 0) {
 #pragma unroll
     for (int j = 0; j < GM; ++j) {
+      if (live) {
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) sm_acc[warp][j][c0 + e] = acc[j][e];
+        for (int e = 0; e < EPL; ++e) sm_acc[warp][j][c0 + e] = acc[j][e];
+      }
       if (sl == 0) {
         sm_m[warp][j] = m[j];
         sm_l[warp][j] = l[j];
@@ -310,17 +322,17 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// grid B * H, D threads: each (slot, head)'s splits, the ceil(n / SPLIT)
-// that its length n covers, summed in split order (0 for a slot of length
-// 0). Each thread sums its channel; the splits' weights exp(m_i - m) are
-// taken D at a time into shared memory, so no thread walks the (m, l)
-// list alone.
-template <typename T, int D>
-__global__ void __launch_bounds__(D)
+// grid B * H, D threads rounded up to whole warps (MT): each (slot,
+// head)'s splits, the ceil(n / SPLIT) that its length n covers, summed in
+// split order (0 for a slot of length 0). Each thread below D sums its
+// channel; the splits' weights exp(m_i - m) are taken MT at a time into
+// shared memory, so no thread walks the (m, l) list alone.
+template <typename T, int D, int MT = (D + 31) / 32 * 32>
+__global__ void __launch_bounds__(MT)
 flash_decode_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
                           const int* __restrict__ lengths, T* __restrict__ o, int h, int cap,
                           int n_split) {
-  __shared__ float sm_f[D], sm_l[D], sm_m[D / 32];
+  __shared__ float sm_f[MT], sm_l[MT], sm_m[MT / 32];
   const int bh = blockIdx.x, c = threadIdx.x;
   const int n = min(max(lengths[bh / h], 0), cap);
   const int ns = (n + SPLIT - 1) / SPLIT;
@@ -328,15 +340,15 @@ flash_decode_merge_kernel(const float* __restrict__ part_acc, const float* __res
   const float* pa = part_acc + (size_t)bh * n_split * D + c;
   // the largest m: a max is exact in any order
   float mg = -INFINITY;
-  for (int i = c; i < ns; i += D) mg = fmaxf(mg, ml[2 * i]);
+  for (int i = c; i < ns; i += MT) mg = fmaxf(mg, ml[2 * i]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) mg = fmaxf(mg, __shfl_xor_sync(0xffffffffu, mg, off));
   if (c % 32 == 0) sm_m[c / 32] = mg;
   __syncthreads();
 #pragma unroll
-  for (int w = 0; w < D / 32; ++w) mg = fmaxf(mg, sm_m[w]);
+  for (int w = 0; w < MT / 32; ++w) mg = fmaxf(mg, sm_m[w]);
   float lg = 0.f, ag = 0.f;
-  for (int i0 = 0; i0 < ns; i0 += D) {
+  for (int i0 = 0; i0 < ns; i0 += MT) {
     __syncthreads();  // the previous chunk's readers are done
     if (i0 + c < ns) {
       const float m = ml[2 * (i0 + c)];
@@ -344,14 +356,16 @@ flash_decode_merge_kernel(const float* __restrict__ part_acc, const float* __res
       sm_l[c] = ml[2 * (i0 + c) + 1];
     }
     __syncthreads();
-    const int cnt = min(D, ns - i0);
+    const int cnt = min(MT, ns - i0);
+    if (c < D) {
 #pragma unroll 8
-    for (int i = 0; i < cnt; ++i) {
-      lg = fmaf(sm_f[i], sm_l[i], lg);
-      ag = fmaf(sm_f[i], pa[(size_t)(i0 + i) * D], ag);
+      for (int i = 0; i < cnt; ++i) {
+        lg = fmaf(sm_f[i], sm_l[i], lg);
+        ag = fmaf(sm_f[i], pa[(size_t)(i0 + i) * D], ag);
+      }
     }
   }
-  store(o + (size_t)bh * D + c, ag / fmaxf(lg, 1e-30f));
+  if (c < D) store(o + (size_t)bh * D + c, ag / fmaxf(lg, 1e-30f));
 }
 
 template <typename T, int D, int GM, bool PAGED>
@@ -371,8 +385,8 @@ int launch_gm(const void* q, const void* k, const void* v, const int* lengths, c
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  flash_decode_merge_kernel<T, D><<<b * h, D, 0, st>>>(part_acc, part_ml, lengths, (T*)o, h, cap,
-                                                      n_split);
+  flash_decode_merge_kernel<T, D><<<b * h, (D + 31) / 32 * 32, 0, st>>>(part_acc, part_ml, lengths,
+                                                                        (T*)o, h, cap, n_split);
   return (int)cudaGetLastError();
 }
 
@@ -395,13 +409,16 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, cons
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. Anything else
-// returns cudaErrorInvalidValue without launching. `work` is the split
-// workspace the wrapper allocates, repro_flash_decode_workspace floats.
+// dtype: 0 = float32, 1 = bfloat16. head_dim: 64, 112 (zamba2's shared
+// block) or 128. Anything else returns cudaErrorInvalidValue without
+// launching. `work` is the split workspace the wrapper allocates,
+// repro_flash_decode_workspace floats.
 #define DISPATCH(PAGED, ...)                                                         \
   if (dtype == 0 && d == 64) return launch<float, 64, PAGED>(__VA_ARGS__);           \
+  if (dtype == 0 && d == 112) return launch<float, 112, PAGED>(__VA_ARGS__);         \
   if (dtype == 0 && d == 128) return launch<float, 128, PAGED>(__VA_ARGS__);         \
   if (dtype == 1 && d == 64) return launch<__nv_bfloat16, 64, PAGED>(__VA_ARGS__);   \
+  if (dtype == 1 && d == 112) return launch<__nv_bfloat16, 112, PAGED>(__VA_ARGS__); \
   if (dtype == 1 && d == 128) return launch<__nv_bfloat16, 128, PAGED>(__VA_ARGS__); \
   return (int)cudaErrorInvalidValue;
 

@@ -25,7 +25,12 @@
 //   (16, N) slab of the state in registers, recomputes the chunk's cumsum
 //   (64 values, one warp scan), and writes each chunk's input state
 //   (forward: `states`, the backward's residual) or d(output state)
-//   (backward: `dstates`, scratch) to memory. The next chunk's slab of x or
+//   (backward: `dstates`, scratch) to memory. The forward's slab starts
+//   from an initial state read from memory (a prefill that continues a
+//   cached state) or from 0 (training), and its state leaving the last
+//   chunk goes to memory when the caller asks for it (the state a prefill
+//   hands to decode); the backward starts from 0 and writes no final
+//   d(state). The next chunk's slab of x or
 //   dy and rows of B or C come in by 16-byte cp.async into a second buffer
 //   while this chunk's product runs. (1, 2048, 112, 64, 64): 448 blocks,
 //   all resident at once (45 KB of shared memory each).
@@ -71,8 +76,9 @@
 //
 // Layout is the model's: x, y, dx, dy (B, S, H, P); dt, ddt, d(dA)
 // (B, S, H); Bm, Cm (B, S, N); dB, dC partials (B, S, H, N); states,
-// dstates (B, H, nc, P, N) f32. S is a multiple of L (the wrapper pads with
-// dt = 0). x, Bm, Cm, dy and the states are 16-byte aligned.
+// dstates (B, H, nc, P, N) f32; the forward's initial and final states
+// (B, H, P, N) f32. S is a multiple of L (the wrapper pads with dt = 0,
+// which leaves the state as it is: exp(A 0) = 1 and x dt = 0). x, Bm, Cm, dy and the states are 16-byte aligned.
 //
 // Plain C interface for ctypes. Every entry returns cudaGetLastError()
 // after its launch (0 on success). Launches go to the caller's stream.
@@ -246,11 +252,15 @@ __device__ __forceinline__ void zero(float (&acc)[M][K]) {
 // ascending; out[c] = the state entering chunk c. Backward (REV true):
 // u = dy, v = C, weights exp(cum), chunks descending; out[c] = d(the state
 // leaving chunk c). Per chunk: out[c] = s; s = exp(total) s + (u wt)^T v
-// over the block's 16 rows of P. Warp w holds the n-tiles w, w + NWS, ...
+// over the block's 16 rows of P. s starts from init where it is not null
+// (else 0), and fin, where it is not null, gets s after the last chunk.
+// Warp w holds the n-tiles w, w + NWS, ...
 template <typename T, int P, int N, bool REV>
 __device__ __forceinline__ void state_pass(const T* __restrict__ u, const T* __restrict__ dt,
                                            const float* __restrict__ A,
-                                           const T* __restrict__ v, float* __restrict__ out,
+                                           const T* __restrict__ v,
+                                           const float* __restrict__ init,
+                                           float* __restrict__ out, float* __restrict__ fin,
                                            int S, int H) {
   constexpr int XS = SLAB + 8;
   constexpr int NTILE = N / 8;
@@ -279,8 +289,26 @@ __device__ __forceinline__ void state_pass(const T* __restrict__ u, const T* __r
     d1 = to_f(src[H]);
   };
 
+  // this thread's entries of the slab: rows g and g + 8, columns
+  // nt 8 + 2 t and + 1 of each n-tile nt it holds
+  const size_t slab0 = ((size_t)bi * H + h) * P * N + (size_t)p0 * N;
   float st[TPW][4];
   zero(st);
+  if (init != nullptr) {  // the state entering chunk 0
+#pragma unroll
+    for (int j = 0; j < TPW; ++j) {
+      const int nt = warp + NWS * j;
+      if (nt < NTILE) {
+        const float2 lo = *reinterpret_cast<const float2*>(init + slab0 + g * N + nt * 8 + 2 * t);
+        const float2 hi =
+            *reinterpret_cast<const float2*>(init + slab0 + (g + 8) * N + nt * 8 + 2 * t);
+        st[j][0] = lo.x;
+        st[j][1] = lo.y;
+        st[j][2] = hi.x;
+        st[j][3] = hi.y;
+      }
+    }
+  }
   float d0, d1;
   issue(REV ? nc - 1 : 0, 0);
   load_dt(REV ? nc - 1 : 0, d0, d1);
@@ -346,14 +374,25 @@ __device__ __forceinline__ void state_pass(const T* __restrict__ u, const T* __r
     d0 = n0;
     d1 = n1;
   }
+  if (fin != nullptr) {  // the state leaving the last chunk
+#pragma unroll
+    for (int j = 0; j < TPW; ++j) {
+      const int nt = warp + NWS * j;
+      if (nt < NTILE) {
+        store2(fin + slab0 + g * N + nt * 8 + 2 * t, st[j][0], st[j][1]);
+        store2(fin + slab0 + (g + 8) * N + nt * 8 + 2 * t, st[j][2], st[j][3]);
+      }
+    }
+  }
 }
 
 template <typename T, int P, int N>
 __global__ void __launch_bounds__(NTS)
 ssd_fwd_state_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                      const float* __restrict__ A, const T* __restrict__ bm,
-                     float* __restrict__ states, int S, int H) {
-  state_pass<T, P, N, false>(x, dt, A, bm, states, S, H);
+                     const float* __restrict__ init, float* __restrict__ states,
+                     float* __restrict__ fin, int S, int H) {
+  state_pass<T, P, N, false>(x, dt, A, bm, init, states, fin, S, H);
 }
 
 template <typename T, int P, int N>
@@ -361,7 +400,7 @@ __global__ void __launch_bounds__(NTS)
 ssd_bwd_state_kernel(const T* __restrict__ dy, const T* __restrict__ dt,
                      const float* __restrict__ A, const T* __restrict__ cm,
                      float* __restrict__ dstates, int S, int H) {
-  state_pass<T, P, N, true>(dy, dt, A, cm, dstates, S, H);
+  state_pass<T, P, N, true>(dy, dt, A, cm, nullptr, dstates, nullptr, S, H);
 }
 
 constexpr size_t state_smem(int n) {
@@ -883,13 +922,13 @@ cudaError_t allow_smem(Kern kern, size_t bytes) {
 }
 
 template <typename T, int P, int N>
-int fwd_state(const void* x, const void* dt, const float* A, const void* bm, float* states, int b,
-              int s, int h, cudaStream_t st) {
+int fwd_state(const void* x, const void* dt, const float* A, const void* bm, const float* init,
+              float* states, float* fin, int b, int s, int h, cudaStream_t st) {
   const size_t smem = state_smem(N);
   cudaError_t e = allow_smem(ssd_fwd_state_kernel<T, P, N>, smem);
   if (e != cudaSuccess) return (int)e;
   ssd_fwd_state_kernel<T, P, N><<<b * h * (P / SLAB), NTS, smem, st>>>(
-      (const T*)x, (const T*)dt, A, (const T*)bm, states, s, h);
+      (const T*)x, (const T*)dt, A, (const T*)bm, init, states, fin, s, h);
   return (int)cudaGetLastError();
 }
 
@@ -947,11 +986,14 @@ int bwd_chunk(const void* x, const void* dt, const float* A, const void* bm, con
 
 extern "C" {
 
-// the forward state pass: each chunk's input state into states
+// the forward state pass: each chunk's input state into states, starting
+// from init (B, H, P, N) f32, or from 0 where init is null; the state
+// leaving the last chunk into final_state (B, H, P, N) f32 unless it is null
 int repro_ssd_fwd_state(const void* x, const void* dt, const void* A, const void* bm,
-                        void* states, int b, int s, int h, int p, int n, int dtype,
-                        void* stream) {
-  DISPATCH(fwd_state, x, dt, (const float*)A, bm, (float*)states, b, s, h, (cudaStream_t)stream)
+                        const void* init, void* states, void* final_state, int b, int s, int h,
+                        int p, int n, int dtype, void* stream) {
+  DISPATCH(fwd_state, x, dt, (const float*)A, bm, (const float*)init, (float*)states,
+           (float*)final_state, b, s, h, (cudaStream_t)stream)
 }
 
 // the forward chunk pass: y from the inputs and each chunk's input state

@@ -6,7 +6,13 @@ positions); the SSD chunk 64, its state passes one block per (batch,
 head, 16 rows of P), its chunk passes one per (batch, head, chunk)): the
 reference's block sizes and its
 autotuned routing (``autotune.DEFAULTS``, ``_resolve``) are TPU choices,
-and autotuning is a later slice."""
+and autotuning is a later slice.
+
+Training takes ``flash_attention`` and ``ssd``; serving takes
+``flash_attention`` for the prefill (also at a query offset), the two
+decode entries (head_dim 64, 112 or 128) and, for the hybrid's Mamba2
+layers, ``ssd_prefill``, which continues a cached SSM state over the
+prompt and returns the state decode goes on from."""
 from __future__ import annotations
 
 import torch
@@ -57,3 +63,11 @@ def ssd(x, dt, A, Bm, Cm):
     """Mamba2 SSD: x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N) ->
     y (B,S,H,P). Differentiable in all five operands; any S."""
     return _ssd.ssd(x, dt, A, Bm, Cm)
+
+
+def ssd_prefill(x, dt, A, Bm, Cm, init_state):
+    """Mamba2 SSD continuing a state (the reference's ``ssd_chunked``
+    with ``init_state`` and ``return_state``): operands as ``ssd`` plus
+    init_state (B,H,P,N) -> (y (B,S,H,P), final state (B,H,P,N) f32).
+    Forward only (serving); any S."""
+    return _ssd.ssd_prefill(x, dt, A, Bm, Cm, init_state)

@@ -181,16 +181,31 @@ def _chunk_fwd(xc, dtc, dAc, bc, cc):
     return cum, total, decay, scores, scores[..., None] * decay
 
 
-def ssd_fwd_ref(x, dt, A, Bm, Cm, *, chunk: int, return_states=False):
+def _init_state(init_state, x, n, wide):
+    """The state entering the first chunk, (B,H,P,N) in ``wide``: the
+    caller's, or 0."""
+    b, _, h, p = x.shape
+    if init_state is None:
+        return torch.zeros((b, h, p, n), dtype=wide, device=x.device)
+    return init_state.to(wide)
+
+
+def _outputs(main, extra):
+    """``main`` alone, or a tuple of it and the outputs asked for."""
+    return (main, *extra) if extra else main
+
+
+def ssd_fwd_ref(x, dt, A, Bm, Cm, *, chunk: int, return_states=False,
+                init_state=None, return_final=False):
     """The SSD chunk scan at an explicit ``chunk`` (S a multiple of it):
     x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N) -> y (B,S,H,P) in x's
-    dtype [, each chunk's input state (B,H,nc,P,N) in the arithmetic
-    type: f32, or f64 for f64 inputs]. What the
-    forward kernel computes, in the reference's ``_ssd_kernel`` order."""
-    b, _, h, p = x.shape
+    dtype [, each chunk's input state (B,H,nc,P,N)] [, the state leaving
+    the last chunk (B,H,P,N)], states in the arithmetic type: f32, or f64
+    for f64 inputs. The scan starts from ``init_state`` (B,H,P,N), or 0.
+    What the forward kernel computes, in the reference's ``_ssd_kernel``
+    order."""
     xs, dts, dAs, bs, cs = _ssd_chunks(x, dt, A, Bm, Cm, chunk)
-    state = torch.zeros((b, h, p, Bm.shape[-1]), dtype=xs[0].dtype,
-                        device=x.device)
+    state = _init_state(init_state, x, Bm.shape[-1], xs[0].dtype)
     ys, states = [], []
     for xc, dtc, dAc, bc, cc in zip(xs, dts, dAs, bs, cs):
         states.append(state)
@@ -203,9 +218,9 @@ def ssd_fwd_ref(x, dt, A, Bm, Cm, *, chunk: int, return_states=False):
         state = torch.exp(total)[..., None, None] * state + s_local
         ys.append(y_intra + y_inter)
     y = torch.cat(ys, dim=1).to(x.dtype)
-    if return_states:
-        return y, torch.stack(states, dim=2)
-    return y
+    extra = ([torch.stack(states, dim=2)] if return_states else []) \
+        + ([state] if return_final else [])
+    return _outputs(y, extra)
 
 
 def _bwd_chunk(xc, dtc, dAc, bc, cc, s0, ds1, dyc):
@@ -306,32 +321,38 @@ def _cum(dt, A, chunk: int, wide):
     return dtc, cum, cum[:, -1]
 
 
-def _recurrence(local, total, b: int, reverse: bool):
-    """s_0 = 0, s_{c+1} = exp(total_c) s_c + local_c over the chunks (in
-    reverse order for the backward); returns the s entering each chunk,
-    (B, H, nc, P, N)."""
+def _recurrence(local, total, b: int, reverse: bool, init=None):
+    """s_0 = init (default 0), s_{c+1} = exp(total_c) s_c + local_c over
+    the chunks (in reverse order for the backward); returns the s entering
+    each chunk, (B, H, nc, P, N), and the s leaving the last, (B, H, P,
+    N)."""
     nc = local.shape[0] // b
     local = local.reshape(b, nc, *local.shape[1:])
     et = torch.exp(total).reshape(b, nc, -1)[..., None, None]
-    state = torch.zeros_like(local[:, 0])
+    state = torch.zeros_like(local[:, 0]) if init is None else init
     out = [None] * nc
     for c in (reversed(range(nc)) if reverse else range(nc)):
         out[c] = state
         state = et[:, c] * state + local[:, c]
-    return torch.stack(out, dim=2)
+    return torch.stack(out, dim=2), state
 
 
-def ssd_fwd_state_ref(x, dt, A, Bm, *, chunk: int):
-    """The forward state pass: each chunk's input state (B,H,nc,P,N) in
-    the arithmetic type, from x (B,S,H,P), dt (B,S,H), A (H,), Bm
-    (B,S,N)."""
+def ssd_fwd_state_ref(x, dt, A, Bm, *, chunk: int, init_state=None,
+                      return_final=False):
+    """The forward state pass: each chunk's input state (B,H,nc,P,N) [and
+    the state leaving the last chunk (B,H,P,N)] in the arithmetic type,
+    from x (B,S,H,P), dt (B,S,H), A (H,), Bm (B,S,N), starting from
+    ``init_state`` (B,H,P,N), or 0."""
     wide = _wide(x)
     dtc, cum, total = _cum(dt, A, chunk, wide)
     w = torch.exp(total[:, None] - cum) * dtc                    # (b',L,h)
     local = torch.einsum("blhp,bln->bhpn",
                          _fold(x, chunk, wide) * w[..., None],
                          _fold(Bm, chunk, wide))
-    return _recurrence(local, total, x.shape[0], reverse=False)
+    init = _init_state(init_state, x, Bm.shape[-1], wide)
+    states, final = _recurrence(local, total, x.shape[0], reverse=False,
+                                init=init)
+    return _outputs(states, [final] if return_final else [])
 
 
 def ssd_fwd_chunk_ref(x, dt, A, Bm, Cm, states, *, chunk: int):
@@ -356,7 +377,7 @@ def ssd_bwd_state_ref(dt, A, Cm, dy, *, chunk: int):
     dtc, cum, total = _cum(dt, A, chunk, wide)
     dyec = _fold(dy, chunk, wide) * torch.exp(cum)[..., None]
     local = torch.einsum("bihp,bin->bhpn", dyec, _fold(Cm, chunk, wide))
-    return _recurrence(local, total, dy.shape[0], reverse=True)
+    return _recurrence(local, total, dy.shape[0], reverse=True)[0]
 
 
 def ssd_bwd_chunk_ref(x, dt, A, Bm, Cm, states, dstates, dy, *,

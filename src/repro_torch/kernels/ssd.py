@@ -6,7 +6,10 @@ caller's stream by one wrapper call: ``ssd_fwd`` runs the forward state
 pass (each chunk's input state into ``states``, a scratch buffer when the
 caller does not keep it) and then the forward chunk pass (y);
 ``ssd_bwd`` runs the backward state pass (each chunk's d(output state)
-into a scratch buffer) and then the backward chunk pass. ``fwd_state``,
+into a scratch buffer) and then the backward chunk pass. The forward
+state pass also takes an initial state and gives the state leaving the
+last chunk, which serving needs: ``ssd_prefill`` continues a cached state
+over a prompt and returns the state a decode loop goes on from. ``fwd_state``,
 ``fwd_chunk``, ``bwd_state`` and ``bwd_chunk`` launch one pass each, for
 the tests and the parity checks. ``LAUNCHES`` counts the calls of
 ``ssd_fwd`` and ``ssd_bwd`` that reached their kernels, and only those.
@@ -78,9 +81,12 @@ def _check(name: str, x, dt, A, Bm, Cm, **extra) -> Tuple[int, ...]:
     want = {"dt": ((b, s, h), x.dtype), "A": ((h,), torch.float32),
             "Bm": ((b, s, n), x.dtype), "Cm": ((b, s, n), x.dtype),
             "states": states, "dstates": states,
+            "init_state": ((b, h, p, n), torch.float32),
             "dy": (tuple(x.shape), x.dtype)}
     for key, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm),
                    *extra.items()):
+        if t is None:               # an optional input left out
+            continue
         if key != "x" and (tuple(t.shape), t.dtype) != want[key]:
             raise ValueError(f"{name}: {key} is {tuple(t.shape)} {t.dtype}, "
                              f"expected {want[key][0]} {want[key][1]}")
@@ -104,12 +110,19 @@ def _empty_states(x, b, s, h, p, n):
                        device=x.device)
 
 
-def _fwd_state(x, dt, A, Bm, dims):
+def _fwd_state(x, dt, A, Bm, dims, init_state=None, return_final=False):
+    """Each chunk's input state, from ``init_state`` or 0 [, and the state
+    leaving the last chunk]."""
+    b, _, h, p, n = dims
     states = _empty_states(x, *dims)
+    final = (torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+             if return_final else None)
     _launch("repro_ssd_fwd_state", x.data_ptr(), dt.data_ptr(),
-            A.data_ptr(), Bm.data_ptr(), states.data_ptr(), *dims,
-            _DTYPES[x.dtype])
-    return states
+            A.data_ptr(), Bm.data_ptr(),
+            None if init_state is None else init_state.data_ptr(),
+            states.data_ptr(), None if final is None else final.data_ptr(),
+            *dims, _DTYPES[x.dtype])
+    return (states, final) if return_final else states
 
 
 def _fwd_chunk(x, dt, A, Bm, Cm, states, dims):
@@ -143,12 +156,16 @@ def _bwd_chunk(x, dt, A, Bm, Cm, states, dstates, dy, dims):
     return dx, ddt, dda, dbh, dch
 
 
-def fwd_state(x, dt, A, Bm):
+def fwd_state(x, dt, A, Bm, *, init_state=None, return_final=False):
     """The forward state pass alone: each chunk's input state
-    (B,H,nc,P,N) f32."""
+    (B,H,nc,P,N) f32 [, the state leaving the last chunk (B,H,P,N) f32],
+    from ``init_state`` (B,H,P,N) f32 or 0."""
     if not _route(x):
-        return ref.ssd_fwd_state_ref(x, dt, A, Bm, chunk=CHUNK)
-    return _fwd_state(x, dt, A, Bm, _check("fwd_state", x, dt, A, Bm, Bm))
+        return ref.ssd_fwd_state_ref(x, dt, A, Bm, chunk=CHUNK,
+                                     init_state=init_state,
+                                     return_final=return_final)
+    dims = _check("fwd_state", x, dt, A, Bm, Bm, init_state=init_state)
+    return _fwd_state(x, dt, A, Bm, dims, init_state, return_final)
 
 
 def fwd_chunk(x, dt, A, Bm, Cm, states):
@@ -179,18 +196,27 @@ def bwd_chunk(x, dt, A, Bm, Cm, states, dstates, dy):
     return _bwd_chunk(x, dt, A, Bm, Cm, states, dstates, dy, dims)
 
 
-def ssd_fwd(x, dt, A, Bm, Cm, *, return_states=False):
+def ssd_fwd(x, dt, A, Bm, Cm, *, return_states=False, init_state=None,
+            return_final=False):
     """y (B,S,H,P) in x's dtype [, each chunk's input state (B,H,nc,P,N)
-    f32, the backward's residual]. S a multiple of ``CHUNK``. On the card:
-    the forward state pass, then the chunk pass."""
+    f32, the backward's residual] [, the state leaving the last chunk
+    (B,H,P,N) f32, a prefill's state for decode]. The scan starts from
+    ``init_state`` (B,H,P,N) f32, or 0. S a multiple of ``CHUNK``. On the
+    card: the forward state pass, then the chunk pass."""
     if not _route(x):
         return ref.ssd_fwd_ref(x, dt, A, Bm, Cm, chunk=CHUNK,
-                               return_states=return_states)
-    dims = _check("ssd_fwd", x, dt, A, Bm, Cm)
-    states = _fwd_state(x, dt, A, Bm, dims)
+                               return_states=return_states,
+                               init_state=init_state,
+                               return_final=return_final)
+    dims = _check("ssd_fwd", x, dt, A, Bm, Cm, init_state=init_state)
+    states = _fwd_state(x, dt, A, Bm, dims, init_state, return_final)
+    if return_final:
+        states, final = states
     y = _fwd_chunk(x, dt, A, Bm, Cm, states, dims)
     LAUNCHES["ssd_fwd"] += 1
-    return (y, states) if return_states else y
+    extra = ([states] if return_states else []) \
+        + ([final] if return_final else [])
+    return (y, *extra) if extra else y
 
 
 def ssd_bwd(x, dt, A, Bm, Cm, states, dy):
@@ -237,16 +263,38 @@ class SSD(torch.autograd.Function):
         return combine_grads(x, dt, A, Bm, Cm, raw)
 
 
-def ssd(x, dt, A, Bm, Cm) -> torch.Tensor:
-    """Trainable Mamba2 SSD in model layout, any S: y (B,S,H,P)."""
-    s = x.shape[1]
-    pad = -s % CHUNK
+def _padded(x, dt, A, Bm, Cm):
+    """The operands with S padded to a multiple of ``CHUNK`` by rows of
+    dt = 0 (zeros in x, Bm, Cm too), contiguous."""
+    pad = -x.shape[1] % CHUNK
     if pad:
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
         dt, Bm, Cm = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bm, Cm))
-    args = [t.contiguous() for t in (x, dt, A, Bm, Cm)]
+    return [t.contiguous() for t in (x, dt, A, Bm, Cm)]
+
+
+def ssd(x, dt, A, Bm, Cm) -> torch.Tensor:
+    """Trainable Mamba2 SSD in model layout, any S: y (B,S,H,P)."""
+    s = x.shape[1]
+    args = _padded(x, dt, A, Bm, Cm)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         y = SSD.apply(*args)
     else:
         y = ssd_fwd(*args)
     return y[:, :s]
+
+
+def ssd_prefill(x, dt, A, Bm, Cm, init_state):
+    """Forward-only Mamba2 SSD that continues a state, any S: (y
+    (B,S,H,P), the state after the last row (B,H,P,N) f32), from
+    ``init_state`` (B,H,P,N). A padded row has dt = 0: it decays the
+    state by exp(A 0) = 1 and adds x dt B = 0, so the final state is the
+    one after the last real row."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm, init_state)):
+        raise ValueError("ssd_prefill is forward only")
+    s = x.shape[1]
+    y, final = ssd_fwd(*_padded(x, dt, A, Bm, Cm),
+                       init_state=init_state.float().contiguous(),
+                       return_final=True)
+    return y[:, :s], final

@@ -11,14 +11,17 @@ admitted: each admission prefills its request alone and writes the
 resulting cache rows into the slot (dense) or into pool pages (paged), so
 a reused slot never sees the previous occupant's rows.
 
-Idle slots keep stepping; their tokens are discarded. Their cache writes
+Idle slots keep stepping; their tokens are discarded. Their K/V writes
 never land: a dense slot's index may run past ``max_len`` and its write
 is dropped (``attention._scatter_rows``), and a paged slot with no page
-writes into the pool's scratch page.
+writes into the pool's scratch page. The hybrid's Mamba2 conv windows and
+SSM states are per slot in both layouts: an idle slot's keep stepping,
+and an admission overwrites them with its own prefill's.
 
-The dense and vlm families only (the port's model); the reference's fault
-injection and segment retry (``fault_injector``, ``retry_policy``) come
-with checkpoints and executor recovery in a later slice.
+The dense, vlm and hybrid families (the port's model); prefix sharing for
+dense and vlm only, as in the reference. The reference's fault injection
+and segment retry (``fault_injector``, ``retry_policy``) come with
+checkpoints and executor recovery in a later slice.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from repro_torch.launch.serve import (_device, _make_scan_generate,
                                       prefill_extend_cached)
 from repro_torch.models import init_cache, init_paged_cache, prefill
 from repro_torch.models.model import _require_ported
+from repro_torch.tree import flatten
 
 
 @dataclasses.dataclass
@@ -79,8 +83,21 @@ class DecodeEngine:
                  retain_pages: Optional[int] = None, debug: bool = False,
                  clock=time.monotonic, brownout_depth: int = 0):
         _require_ported(cfg, serving=True)
-        if prefix_share and not paged:
-            raise ValueError("prefix_share requires paged=True")
+        if prefix_share:
+            if not paged:
+                raise ValueError("prefix_share requires paged=True")
+            # bitwise contract: the suffix prefill (prefill_extend) gives
+            # the full prefill's rows; the hybrid's recurrent state is not
+            # page-addressable at all
+            if cfg.family not in ("dense", "vlm"):
+                raise ValueError(
+                    f"prefix_share needs a bitwise-stable suffix prefill; "
+                    f"family {cfg.family!r} carries recurrent state across "
+                    f"positions and has none")
+        if paged and not _has_linear_kv(cfg):
+            raise ValueError(
+                f"paged KV requires a linear-layout KV cache; family "
+                f"{cfg.family!r} (window {cfg.sliding_window}) has none")
         self.cfg, self.params = cfg, params
         self.device = _device(params)
         self.n_slots, self.max_len, self.segment = n_slots, max_len, segment
@@ -312,10 +329,11 @@ class DecodeEngine:
         cache = init_cache(self.cfg, 1, self.max_len, device=self.device)
         idx = torch.as_tensor(pids, device=self.device)
         n = len(pids) * self.page_size
-        for key, pool in self.cache["units"].items():
+        dense = flatten(cache["units"])
+        for key, pool in _pools(self.cache["units"]):
             u = pool.shape[0]              # pool: (U, n_pages + 1, ps, H, D)
             rows = pool[:, idx].reshape((u, n) + pool.shape[3:])
-            cache["units"][key][:, 0, :n] = rows
+            dense[key][:, 0, :n] = rows
         return cache
 
     # ------------------------------------------------------------------ #
@@ -418,7 +436,7 @@ class DecodeEngine:
             self.stats["prompt_tokens_total"] += plen
         self._scatter_paged(pcache["units"],
                             [int(p) for p in self._pages_np[slot, f:npf]],
-                            first_page=f)
+                            slot, first_page=f)
         if self.prefix_share:
             for p in self._trie.insert(
                     req.prompt, [int(x) for x in self._pages_np[slot, :npf]]):
@@ -426,19 +444,25 @@ class DecodeEngine:
             self._trim_trie()
         return logits
 
-    def _scatter_paged(self, punits, pids: List[int], *,
+    def _scatter_paged(self, punits, pids: List[int], slot: int, *,
                        first_page: int = 0) -> None:
-        """Write a solo prefill cache's prompt rows into pool pages
-        ``pids``, page by page from prompt page ``first_page`` (the shared
-        prefix pages before it are already filled)."""
+        """Write a solo prefill cache into the paged engine cache: the
+        pools take the prompt's rows into pages ``pids``, page by page from
+        prompt page ``first_page`` (the shared prefix pages before it are
+        already filled); per-slot leaves (the hybrid's Mamba2 state) go
+        into slot ``slot`` as in the dense engine."""
         ps, n = self.page_size, len(pids)
         idx = torch.as_tensor(pids, device=self.device)
         lo = first_page * ps
-        for key, pool in self.cache["units"].items():
-            src = punits[key]                  # (U, 1, max_len, H, D)
-            rows = src[:, 0, lo:lo + n * ps]
-            pool[:, idx] = rows.reshape((src.shape[0], n, ps)
-                                        + src.shape[3:]).to(pool.dtype)
+        srcs = flatten(punits)
+        for key, dst in flatten(self.cache["units"]).items():
+            src = srcs[key]
+            if not _is_pool(key):
+                _scatter_slot_leaf(dst, src, slot)
+                continue
+            rows = src[:, 0, lo:lo + n * ps]     # src: (U, 1, max_len, H, D)
+            dst[:, idx] = rows.reshape((src.shape[0], n, ps)
+                                       + src.shape[3:]).to(dst.dtype)
 
     def _fork_page(self, slot: int, j: int) -> None:
         """Copy-on-write: give ``slot`` a private copy of block-table entry
@@ -448,7 +472,7 @@ class DecodeEngine:
         old = int(self._pages_np[slot, j])
         new = self._take_page()                 # refs[new] = 1
         self._page_refs[old] -= 1
-        for pool in self.cache["units"].values():
+        for _, pool in _pools(self.cache["units"]):
             pool[:, new] = pool[:, old]
         self._pages_np[slot, j] = new
         self._slot_unique[slot] += 1
@@ -626,14 +650,45 @@ class DecodeEngine:
 
 
 # ---------------------------------------------------------------------- #
+def _has_linear_kv(cfg) -> bool:
+    """True if decode writes one linear K/V row per absolute position, so
+    that the K/V leaves can be paged: the dense and vlm families, and the
+    hybrid when it has a shared attention block. A sliding window's ring
+    buffer wraps."""
+    if cfg.sliding_window > 0:
+        return False
+    return cfg.family in ("dense", "vlm") or (
+        cfg.family == "hybrid" and cfg.attn_every > 0)
+
+
+def _is_pool(key: str) -> bool:
+    """Whether the cache leaf at flat key ``key`` ("k", "shared/v", ...)
+    is K/V, which the paged layout keeps in pools."""
+    return key.rsplit("/", 1)[-1] in ("k", "v")
+
+
+def _pools(units):
+    """(flat key, leaf) of every K/V leaf of a cache's unit tree."""
+    return [(k, t) for k, t in flatten(units).items() if _is_pool(k)]
+
+
 def _scatter_slot_leaf(dst: torch.Tensor, src: torch.Tensor, slot: int
                        ) -> None:
-    """In place: write a batch-1 cache leaf (U, 1, ...) into slot ``slot``
-    of a batch-``n_slots`` leaf (U, n_slots, ...)."""
-    dst[:, slot] = src[:, 0].to(dst.dtype)
+    """In place: write a batch-1 cache leaf into slot ``slot`` of a
+    batch-``n_slots`` leaf. The slot axis differs by leaf ((U, B, ...)
+    for K/V, (U, u, B, ...) for the hybrid's stacked Mamba2 layers), so
+    it is the one axis where the shapes differ; with ``n_slots == 1``
+    none does and the leaf is replaced."""
+    ax = next((i for i, (a, b) in enumerate(zip(dst.shape, src.shape))
+               if a != b), None)
+    if ax is None:
+        dst.copy_(src)
+    else:
+        dst.select(ax, slot).copy_(src.select(ax, 0))
 
 
 def _scatter_slot(dst_tree, src_tree, slot: int) -> None:
     """Tree-wide ``_scatter_slot_leaf``."""
-    for key, dst in dst_tree.items():
-        _scatter_slot_leaf(dst, src_tree[key], slot)
+    srcs = flatten(src_tree)
+    for key, dst in flatten(dst_tree).items():
+        _scatter_slot_leaf(dst, srcs[key], slot)

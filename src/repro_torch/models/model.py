@@ -10,10 +10,12 @@ Public API (params are plain nested dicts of tensors):
     init_cache / init_paged_cache         -> decode cache
     prefill / prefill_extend / decode_step (serving)
 
-Other families raise ``NotImplementedError`` naming the slice that brings
-them; so does serving a hybrid, which trains here but serves in a later
-slice. The reference's sharding constraints are no-ops on one device and
-are left out.
+The hybrid serves too: its decode cache holds, per unit, each Mamba2
+layer's conv window and SSM state, stacked (n_units, layers per unit, B,
+...), and one K/V cache per application of the shared block, stacked
+(n_units, B, ...). Other families raise ``NotImplementedError`` naming the
+slice that brings them. The reference's sharding constraints are no-ops
+on one device and are left out.
 """
 from __future__ import annotations
 
@@ -32,10 +34,8 @@ from .layers import (embed, linear, mrope_cos_sin, normal_init, rms_norm,
                      rope_cos_sin, swiglu, unembed)
 
 TRAIN_FAMILIES = ("dense", "vlm", "hybrid")
-SERVE_FAMILIES = ("dense", "vlm")
-_LATER = {"hybrid": "the hybrid-serving slice (mamba2_prefill, "
-                    "mamba2_decode)",
-          "moe": "the remaining-families slice",
+SERVE_FAMILIES = ("dense", "vlm", "hybrid")
+_LATER = {"moe": "the remaining-families slice",
           "ssm": "the remaining-families slice",
           "audio": "the remaining-families slice"}
 
@@ -239,14 +239,32 @@ def _require_linear(cfg: ArchConfig) -> None:
             f"ring buffer (window {cfg.sliding_window}) is not ported yet")
 
 
+def _unit_caches(cfg: ArchConfig, batch: int, kv_shape, dt, dev) -> Dict:
+    """The per-unit cache tree, stacked over units: the K/V leaves of
+    shape (n_units,) + ``kv_shape``; for the hybrid, under "shared" (one
+    K/V cache per application of the shared block), beside each Mamba2
+    layer's dense per-slot conv window and state under "mamba"."""
+    kv = _kv_cache((cfg.n_units,) + kv_shape, dt, dev)
+    if cfg.family != "hybrid":
+        return kv
+    return {"mamba": ssm_mod.mamba2_init_cache(
+                batch, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
+                cfg.ssm_conv, lead=(cfg.n_units, cfg.pattern_unit()),
+                dtype=dt, device=dev),
+            "shared": kv}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                device=None) -> Dict:
     """Zeroed linear decode cache: {"units": {"k", "v"} (n_units, B,
-    max_len, Hkv, D), "index": 0-dim int64}."""
+    max_len, Hkv, D), "index": 0-dim int64}; for the hybrid "units" is
+    {"mamba": {"conv" (n_units, u, B, d_conv - 1, C), "state" (n_units,
+    u, B, H, P, N) f32}, "shared": {"k", "v"}}."""
     _require_linear(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_units, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"units": _kv_cache(shape, torch_dtype(dtype or cfg.dtype), dev),
+    kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"units": _unit_caches(cfg, batch, kv_shape,
+                                  torch_dtype(dtype or cfg.dtype), dev),
             "index": torch.zeros((), dtype=torch.long, device=dev)}
 
 
@@ -258,15 +276,17 @@ def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     table ``pages``: (batch, max_len // page_size) int32, -1 =
     unassigned. Pool page ``n_pages`` is a scratch page that no table
     entry names: a decode write with no page of its own lands there (the
-    reference drops it with an out-of-bounds scatter)."""
+    reference drops it with an out-of-bounds scatter). The hybrid's
+    Mamba2 leaves stay dense per slot: they are O(1) per slot, not
+    O(max_len)."""
     _require_linear(cfg)
     if max_len % page_size:
         raise ValueError(f"max_len {max_len} is not a multiple of "
                          f"page_size {page_size}")
     dev = resolve_device(device)
-    shape = (cfg.n_units, n_pages + 1, page_size, cfg.n_kv_heads,
-             cfg.head_dim)
-    return {"units": _kv_cache(shape, torch_dtype(dtype or cfg.dtype), dev),
+    kv_shape = (n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"units": _unit_caches(cfg, batch, kv_shape,
+                                  torch_dtype(dtype or cfg.dtype), dev),
             "index": torch.zeros((), dtype=torch.long, device=dev),
             "pages": torch.full((batch, max_len // page_size), -1,
                                 dtype=torch.int32, device=dev)}
@@ -277,22 +297,49 @@ def _akw(cfg):
                 head_dim=cfg.head_dim)
 
 
+def _serve_units(cfg: ArchConfig, params, cache, x, mamba_fn, attn_fn):
+    """Every unit over the decode cache, in place: ``attn_fn(attention
+    params, normed x, K/V cache)`` for each attention block (the hybrid's
+    shared block once per unit, with that application's K/V cache), and,
+    for the hybrid, ``mamba_fn`` (``ssm.mamba2_prefill`` or
+    ``mamba2_decode``) for each Mamba2 layer with its cache."""
+    eps = cfg.norm_eps
+    shared = params.get("shared_attn")
+    for u in range(cfg.n_units):
+        p = unit_slice(params["units"], u)
+        c = unit_slice(cache["units"], u)
+        if cfg.family == "hybrid":
+            for i in range(cfg.pattern_unit()):
+                lp, lc = unit_slice(p["mamba"], i), unit_slice(c["mamba"], i)
+                h, _ = mamba_fn(lp["mamba"], rms_norm(lp["ln"], x, eps), lc,
+                                d_inner=cfg.d_inner,
+                                ssm_state=cfg.ssm_state,
+                                n_heads=cfg.n_ssm_heads)
+                x = x + h
+            p, c = shared, c["shared"]
+            if p is None:
+                continue
+        h, _ = attn_fn(p["attn"], rms_norm(p["ln1"], x, eps), c)
+        x = _mlp_block(p, cfg, x + h)
+    return x
+
+
 @torch.no_grad()
 def prefill(cfg: ArchConfig, params, cache, tokens
             ) -> Tuple[torch.Tensor, Dict]:
     """One-shot prefill of a fresh cache (index 0) from the whole prompt.
-    tokens: (B, S) int. Writes the prompt's K/V rows in place and returns
-    (logits (B, S, V), cache with ``index`` S)."""
+    tokens: (B, S) int. Writes the prompt's K/V rows (and, for the
+    hybrid, each Mamba2 layer's conv window and SSM state after the
+    prompt) in place and returns (logits (B, S, V), cache with ``index``
+    S)."""
     _require_linear(cfg)
     b, s = tokens.shape
     x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     cos, sin = _rope_tables(cfg, torch.arange(s, device=tokens.device))
-    for u in range(cfg.n_units):
-        p = unit_slice(params["units"], u)
-        h, _ = attn_mod.attention_prefill(
-            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cos, sin,
-            unit_slice(cache["units"], u), **_akw(cfg))
-        x = _mlp_block(p, cfg, x + h)
+
+    def attn(p, xn, kv):
+        return attn_mod.attention_prefill(p, xn, cos, sin, kv, **_akw(cfg))
+    x = _serve_units(cfg, params, cache, x, ssm_mod.mamba2_prefill, attn)
     x = rms_norm(params["ln_f"], x, cfg.norm_eps)
     new_cache = dict(cache)
     new_cache["index"] = torch.full_like(cache["index"], s)
@@ -306,18 +353,24 @@ def prefill_extend(cfg: ArchConfig, params, cache, tokens, *,
     are filled (the prefix-sharing engine gathers a matched prompt prefix
     out of the page pool) and compute only the suffix. tokens:
     (B, S_suffix) at absolute positions ``start .. start + S - 1``.
-    Returns (logits (B, S_suffix, V), cache with index start + S)."""
+    Returns (logits (B, S_suffix, V), cache with index start + S). Only
+    for families whose per-layer state is position-local: the hybrid's
+    conv window and SSM state would need a snapshot at ``start``."""
     _require_linear(cfg)
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(
+            f"prefill_extend needs position-local state; family "
+            f"{cfg.family!r} carries recurrent state across positions "
+            f"(the Mamba2 conv window and SSM state)")
     b, s = tokens.shape
     x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     cos, sin = _rope_tables(
         cfg, torch.arange(start, start + s, device=tokens.device))
-    for u in range(cfg.n_units):
-        p = unit_slice(params["units"], u)
-        h, _ = attn_mod.attention_prefill_extend(
-            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cos, sin,
-            unit_slice(cache["units"], u), start=start, **_akw(cfg))
-        x = _mlp_block(p, cfg, x + h)
+
+    def attn(p, xn, kv):
+        return attn_mod.attention_prefill_extend(p, xn, cos, sin, kv,
+                                                 start=start, **_akw(cfg))
+    x = _serve_units(cfg, params, cache, x, None, attn)
     x = rms_norm(params["ln_f"], x, cfg.norm_eps)
     new_cache = dict(cache)
     new_cache["index"] = torch.full_like(cache["index"], start + s)
@@ -329,10 +382,11 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, *, index=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """tokens: (B, 1) int; ``index``: absolute position, 0-dim or per
     example (B,), on the cache's device (default ``cache["index"]``).
-    Writes one K/V row per example in place and returns (logits
-    (B, 1, V), cache with index + 1). With ``cache["pages"]`` the cache
-    is paged and attention takes the paged flash-decode kernel on the
-    card; else the linear one."""
+    Writes one K/V row per example (and, for the hybrid, steps each
+    Mamba2 layer's conv window and SSM state) in place and returns
+    (logits (B, 1, V), cache with index + 1). With ``cache["pages"]`` the
+    cache is paged and attention takes the paged flash-decode kernel on
+    the card; else the linear one."""
     _require_linear(cfg)
     b = tokens.shape[0]
     idx = cache["index"] if index is None else index
@@ -340,13 +394,11 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, *, index=None
     x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     cos, sin = _rope_tables(cfg, vec[:, None])
     pages = cache.get("pages")
-    for u in range(cfg.n_units):
-        p = unit_slice(params["units"], u)
-        h, _ = attn_mod.attention_decode(
-            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cos, sin,
-            unit_slice(cache["units"], u), vec, pages=pages,
-            **_akw(cfg))
-        x = _mlp_block(p, cfg, x + h)
+
+    def attn(p, xn, kv):
+        return attn_mod.attention_decode(p, xn, cos, sin, kv, vec,
+                                         pages=pages, **_akw(cfg))
+    x = _serve_units(cfg, params, cache, x, ssm_mod.mamba2_decode, attn)
     x = rms_norm(params["ln_f"], x, cfg.norm_eps)
     new_cache = dict(cache)
     new_cache["index"] = idx + 1

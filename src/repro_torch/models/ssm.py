@@ -1,11 +1,18 @@
-"""Mamba2 (SSD) block, training half (the reference's ``models/ssm.py``:
-``mamba2_init``, ``_split_proj``, ``_causal_conv``, ``mamba2_forward``).
+"""Mamba2 (SSD) block (the reference's ``models/ssm.py``): training
+(``mamba2_init``, ``_split_proj``, ``_causal_conv``, ``mamba2_forward``)
+and serving (``mamba2_init_cache``, ``mamba2_prefill``, ``mamba2_decode``).
 
-The SSD core always goes through ``kernels.ops.ssd``: on the card the
-hand-written chunk-scan kernels, on the CPU their plain version. ``A_log``,
+The SSD core of training and prefill goes through ``kernels.ops``
+(``ssd``, and ``ssd_prefill``, which continues a cached state and returns
+the final one): on the card the hand-written chunk-scan kernels, on the
+CPU their plain version. Decode is the one-token recurrence in f32, plain
+PyTorch as in the reference, which has no kernel for it either. ``A_log``,
 ``dt_bias`` and ``D`` stay f32 in a bf16 model, as in the reference, and
-the SSD runs in f32. Serving (``mamba2_prefill``, ``mamba2_decode`` and a
-chunked SSD with an initial state) comes with the hybrid-serving slice.
+the SSD runs in f32.
+
+A layer's decode cache is {"conv": (B, d_conv - 1, C) in the model's
+dtype, the last raw conv inputs; "state": (B, H, P, N) f32}. Prefill and
+decode write it in place, as attention writes its K/V rows.
 """
 from __future__ import annotations
 
@@ -59,29 +66,106 @@ def _split_proj(proj, d_inner, n, h):
     return z, xbc, dt
 
 
-def _causal_conv(xbc, w, b):
-    """Depthwise causal conv, xbc: (B, S, C), w: (k, C): the reference's
-    shifted sum, not ``F.conv1d`` (cuDNN would run an f32 conv in TF32)."""
+def _causal_conv(xbc, w, b, window=None):
+    """Depthwise causal conv, xbc: (B, S, C), w: (k, C), continuing
+    ``window`` (B, k - 1, C), the raw inputs before xbc (zeros if None):
+    the reference's shifted sum, not ``F.conv1d`` (cuDNN would run an f32
+    conv in TF32)."""
     k, s = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    if window is None:
+        pad = F.pad(xbc, (0, 0, k - 1, 0))
+    else:
+        pad = torch.cat([window.to(xbc.dtype), xbc], dim=1)
     out = sum(pad[:, i:i + s] * w[i].to(xbc.dtype) for i in range(k))
     return F.silu(out + b.to(xbc.dtype))
 
 
-def mamba2_forward(p, x, *, d_inner, ssm_state, n_heads):
-    """x: (B, S, d_model) -> (B, S, d_model)."""
-    b, s, _ = x.shape
-    n, h = ssm_state, n_heads
-    proj = linear(p["in_proj"], x)
-    z, xbc, dt_raw = _split_proj(proj, d_inner, n, h)
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs = xbc[..., :d_inner].float().reshape(b, s, h, d_inner // h)
+def _ssm_inputs(p, xbc, dt_raw, d_inner, n, h):
+    """x (.., H, P), Bm, Cm (.., N) and dt (.., H) in f32, and A (H,)."""
+    lead = xbc.shape[:-1]
+    xs = xbc[..., :d_inner].float().reshape(lead + (h, d_inner // h))
     Bm = xbc[..., d_inner:d_inner + n].float()
     Cm = xbc[..., d_inner + n:].float()
-    dt = F.softplus(dt_raw.float() + p["dt_bias"][None, None])   # (b,s,h)
-    A = -torch.exp(p["A_log"])
-    y = ops.ssd(xs, dt, A, Bm, Cm)
-    y = y + p["D"][None, None, :, None] * xs
-    y = y.reshape(b, s, d_inner).to(x.dtype)
-    y = rms_norm(p["norm"], y * F.silu(z))
-    return linear(p["out_proj"], y)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    return xs, Bm, Cm, dt, -torch.exp(p["A_log"])
+
+
+def _out(p, y, z, x):
+    """y (B, S, H, P) f32 -> the gated norm and the out projection."""
+    b, s = y.shape[:2]
+    y = y.reshape(b, s, -1).to(x.dtype)
+    return linear(p["out_proj"], rms_norm(p["norm"], y * F.silu(z)))
+
+
+def mamba2_forward(p, x, *, d_inner, ssm_state, n_heads):
+    """x: (B, S, d_model) -> (B, S, d_model)."""
+    proj = linear(p["in_proj"], x)
+    z, xbc, dt_raw = _split_proj(proj, d_inner, ssm_state, n_heads)
+    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    xs, Bm, Cm, dt, A = _ssm_inputs(p, xbc, dt_raw, d_inner, ssm_state,
+                                    n_heads)
+    y = ops.ssd(xs, dt, A, Bm, Cm) + p["D"][:, None] * xs
+    return _out(p, y, z, x)
+
+
+# ---------------------------------------------------------------------- #
+# serving
+# ---------------------------------------------------------------------- #
+def mamba2_init_cache(batch, d_inner, ssm_state, n_heads, d_conv=4, *,
+                      lead=(), dtype, device):
+    """A zeroed decode cache, each leaf with leading dims ``lead`` (the
+    model stacks them (n_units, layers per unit))."""
+    lead = tuple(lead)
+    conv_ch = d_inner + 2 * ssm_state
+    return {
+        "conv": torch.zeros(lead + (batch, d_conv - 1, conv_ch),
+                            dtype=dtype, device=device),
+        "state": torch.zeros(lead + (batch, n_heads, d_inner // n_heads,
+                                     ssm_state),
+                             dtype=torch.float32, device=device),
+    }
+
+
+def mamba2_prefill(p, x, cache, *, d_inner, ssm_state, n_heads):
+    """The whole prompt x (B, S, d_model) in one call, warm-started from
+    ``cache`` (conv window and SSM state), which it leaves as a
+    per-token ``mamba2_decode`` loop would have: the last d_conv - 1 raw
+    conv inputs and the state after the last row, written in place.
+    Returns (out (B, S, d_model), cache). The SSD goes through
+    ``ops.ssd_prefill``."""
+    n, h = ssm_state, n_heads
+    proj = linear(p["in_proj"], x)
+    z, xbc_raw, dt_raw = _split_proj(proj, d_inner, n, h)
+    conv = cache["conv"]
+    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"], conv)
+    conv.copy_(torch.cat([conv, xbc_raw[:, -conv.shape[1]:].to(conv.dtype)],
+                         dim=1)[:, -conv.shape[1]:])
+    xs, Bm, Cm, dt, A = _ssm_inputs(p, xbc, dt_raw, d_inner, n, h)
+    y, state = ops.ssd_prefill(xs, dt, A, Bm, Cm, cache["state"])
+    cache["state"].copy_(state)
+    y = y + p["D"][:, None] * xs
+    return _out(p, y, z, x), cache
+
+
+def mamba2_decode(p, x, cache, *, d_inner, ssm_state, n_heads):
+    """One token, x (B, 1, d_model): the conv over the cached window and
+    this token, then one step of the recurrence in f32
+    state = exp(A dt) state + dt x B^T, y = state C + D x. Updates
+    ``cache`` in place; returns (out (B, 1, d_model), cache). Besides
+    the two projections every op works element by element or along a
+    row's own last axis, never across the batch."""
+    n, h = ssm_state, n_heads
+    proj = linear(p["in_proj"], x)[:, 0]                     # (B, ...)
+    z, xbc, dt_raw = _split_proj(proj, d_inner, n, h)
+    win = torch.cat([cache["conv"], xbc[:, None].to(cache["conv"].dtype)],
+                    dim=1)                                   # (B, k, C)
+    w = p["conv_w"].float()
+    conv = sum(win[:, i].float() * w[i] for i in range(w.shape[0]))
+    xbc = F.silu(conv + p["conv_b"].float())
+    cache["conv"].copy_(win[:, 1:])
+    xs, Bm, Cm, dt, A = _ssm_inputs(p, xbc, dt_raw, d_inner, n, h)
+    state = cache["state"]                                   # (B, H, P, N)
+    state.mul_(torch.exp(A * dt)[..., None, None]).add_(
+        (dt[..., None] * xs)[..., None] * Bm[:, None, None, :])
+    y = (state * Cm[:, None, None, :]).sum(dim=-1) + p["D"][:, None] * xs
+    return _out(p, y[:, None], z[:, None], x), cache

@@ -83,3 +83,15 @@ def test_build_targets_sm90a_and_reports_registers():
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-Xptxas -v" in flags
+
+
+def test_ssd_forward_state_entry_takes_a_state_in_and_out():
+    """The forward state pass's C entry carries the initial state and the
+    final state beside the per-chunk states, each a pointer (null: start
+    from 0, keep no final state)."""
+    params = _declarations("ssd")["repro_ssd_fwd_state"]
+    names = [p.split()[-1].lstrip("*") for p in params]
+    assert names[:7] == ["x", "dt", "A", "bm", "init", "states",
+                         "final_state"]
+    argtypes = build.LIBRARIES["ssd"][1]["repro_ssd_fwd_state"]
+    assert argtypes[4:7] == [ctypes.c_void_p] * 3

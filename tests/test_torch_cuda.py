@@ -207,6 +207,11 @@ def _decode_inputs(gen, b, h, h_kv, s, d, dtype, page_size=16, lengths=None):
     (3, 4, 2, 333, 128, torch.float32, 1e-5),
     (3, 6, 1, 77, 64, torch.float32, 1e-5),
     (2, 6, 1, 77, 64, torch.bfloat16, 2 ** -7),
+    # zamba2's shared block: 32 MHA heads of 112, and GQA at 112
+    (4, 32, 32, 1000, 112, torch.bfloat16, 2 ** -7),
+    (4, 32, 32, 1000, 112, torch.float32, 1e-5),
+    (3, 8, 2, 333, 112, torch.float32, 1e-5),
+    (3, 8, 2, 333, 112, torch.bfloat16, 2 ** -7),
 ])
 def test_decode_kernels_match_plain(cuda, b, h, h_kv, s, d, dtype, tol):
     gen = torch.Generator(device=cuda)
@@ -238,6 +243,8 @@ def test_decode_kernels_match_plain(cuda, b, h, h_kv, s, d, dtype, tol):
     (12, 2, 128, torch.bfloat16),
     (4, 4, 64, torch.bfloat16),
     (6, 1, 64, torch.float32),
+    (32, 32, 112, torch.bfloat16),
+    (4, 4, 112, torch.float32),
 ])
 def test_decode_row_does_not_depend_on_the_batch(cuda, h, h_kv, d, dtype):
     """A slot's row alone (B = 1, in a longer cache) and among 8 slots of
@@ -361,6 +368,44 @@ def test_ssd_passes_match_plain(cuda, b, s, h, p, n, dtype):
         assert got.dtype == want.dtype and got.shape == want.shape
         tol = 2 ** -7 if got.dtype == torch.bfloat16 else 1e-4
         assert _err(got, want) <= tol
+
+
+@pytest.mark.parametrize("b,s,h,p,n,dtype", [
+    (1, 256, 3, 64, 64, torch.float32),
+    (2, 200, 4, 128, 16, torch.float32),
+    (1, 192, 2, 64, 16, torch.bfloat16),
+])
+def test_ssd_state_in_and_out_match_plain(cuda, b, s, h, p, n, dtype):
+    """The forward from an initial state and with the final state, against
+    its plain version; with both pointers null it is the training forward,
+    bitwise. ``ssd_prefill`` pads a ragged S with dt = 0 rows, which leave
+    the final state as the last real row left it."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    x, dt, a, bm, cm, _ = _ssd_inputs(gen, b, s, h, p, n, dtype)
+    init = torch.randn((b, h, p, n), generator=gen, device=cuda)
+    ssd.reset_launches()
+    y0 = ssd.ssd(x, dt, a, bm, cm)
+    y, final = ssd.ssd_prefill(x, dt, a, bm, cm, init)
+    y_z, final_z = ssd.ssd_prefill(x, dt, a, bm, cm, torch.zeros_like(init))
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES == {"ssd_fwd": 3, "ssd_bwd": 0}
+    assert torch.equal(y_z, y0)
+    pad = -s % ssd.CHUNK
+    padded = [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+              for t in (x, dt)] + [a] + [
+        torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (bm, cm)]
+    for start, y_k, f_k in ((init, y, final), (None, y_z, final_z)):
+        y_r, f_r = ref.ssd_fwd_ref(*padded, chunk=ssd.CHUNK,
+                                   init_state=start, return_final=True)
+        tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+        assert _err(y_k, y_r[:, :s]) <= tol
+        assert f_k.dtype == torch.float32 and _err(f_k, f_r) <= 1e-4
+    st, fin = ssd.fwd_state(*padded[:4], init_state=init, return_final=True)
+    st_r, fin_r = ref.ssd_fwd_state_ref(*padded[:4], chunk=ssd.CHUNK,
+                                        init_state=init, return_final=True)
+    assert torch.equal(st[:, :, 0], init)
+    assert _err(st, st_r) <= 1e-4 and _err(fin, fin_r) <= 1e-4
 
 
 def test_ssd_unsupported_shapes_raise(cuda):

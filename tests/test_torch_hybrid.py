@@ -38,7 +38,8 @@ from repro_torch.data import make_batch
 from repro_torch.kernels import ssd
 from repro_torch.launch.cluster import JobSpec, ScheduleExecutor
 from repro_torch.launch.engine import DecodeEngine
-from repro_torch.models import forward, init_cache, init_params
+from repro_torch.models import (forward, init_cache, init_params,
+                                prefill_extend)
 from repro_torch.models.ssm import mamba2_forward
 from repro_torch.train import (TrainConfig, accumulate_gradients,
                                adamw_init, make_loss_and_grad,
@@ -250,9 +251,17 @@ def test_executor_runs_a_hybrid_job():
 
 
 def test_serving_a_hybrid_names_its_slice():
+    """The hybrid serves (``test_torch_hybrid_serve.py``); what stays
+    refused is what the reference refuses: a suffix prefill, which would
+    need the recurrent state at the prefix's end, and prefix sharing,
+    which rests on it."""
     _, tc = _configs(9)
     params = init_params(tc, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid-serving"):
-        init_cache(tc, 2, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid-serving"):
-        DecodeEngine(tc, params, n_slots=2, max_len=64)
+    cache = init_cache(tc, 2, 64, device="cpu")
+    with pytest.raises(ValueError, match="recurrent state"):
+        prefill_extend(tc, params, cache,
+                       torch.zeros((2, 4), dtype=torch.long), start=8)
+    with pytest.raises(ValueError, match="recurrent state"):
+        DecodeEngine(tc, params, n_slots=2, max_len=64, paged=True,
+                     prefix_share=True)
+    DecodeEngine(tc, params, n_slots=2, max_len=64, paged=True)
