@@ -5,8 +5,9 @@
 
 Drives the port's paths (``src/repro_torch``) at full published width:
 co-scheduled, gradient-accumulated training of minicpm-2b and
-qwen2-vl-2b with attention on the hand-written CUDA flash kernels;
-training of the hybrid zamba2-7b (36 of its 81 layers) on the CUDA
+qwen2-vl-2b with attention on the hand-written CUDA flash kernels; the
+calibration of (alpha, beta, xi) from those steps and the replay of an
+SJF-BSBF schedule simulated on them through the executor; training of the hybrid zamba2-7b (36 of its 81 layers) on the CUDA
 Mamba2 SSD chunk-scan kernels and the flash kernels at head_dim 112;
 serving (prefill, KV-cache decode and the continuous-batching
 ``DecodeEngine``) on the flash-attention forward and the two CUDA
@@ -50,21 +51,39 @@ in order; each prints its own line and any failure exits non-zero:
               layers x micro-batches (x 2 forward launches for remat).
 4. pair     - ``measure_pair(minicpm-2b, qwen2-vl-2b)``: solo and pair
               step times and the interference ratios xi.
-5. profile  - one profiled step of each model: device time by kernel
+5. calibrate - ``run_calibration`` on minicpm-2b and qwen2-vl-2b at full
+              width and depth, bf16, seq 2048, B = 4 at accum 1, sweep
+              points 4, 2, 1; the cross pair and qwen2-vl-2b with itself
+              (minicpm-2b with itself, ~82 GB reckoned, is left out).
+              Each measurement's min / median / max step beside its
+              mean, each xi beside the range its steps give; the
+              artifact written and read back (alpha, beta, t_iter_solo,
+              xi, structural xi). Required: finite positive times,
+              beta > 0, xi > 1, launch counts exact.
+6. replay   - ``launch.replay``'s scenario on minicpm-2b at 20 of 40
+              layers and qwen2-vl-2b at 14 of 28 (full width, bf16, seq
+              2048, B = 4): its own calibration (every pair), SJF-BSBF
+              with donor rescaling on it, the plan executed, each job
+              re-run solo. Required: a 3-way group, A shrunk then
+              restored, quotas summing to and every job taking exactly
+              ``job.iters`` steps, launch counts exact, and every job's
+              final parameters bitwise its solo re-run's. Prints each
+              job's predicted and measured seconds and their error.
+7. profile  - one profiled step of each model: device time by kernel
               category and the device's busy share of the step.
-6. hybrid   - zamba2-7b at 36 of 81 layers through ``ScheduleExecutor``:
+8. hybrid   - zamba2-7b at 36 of 81 layers through ``ScheduleExecutor``:
               2 steps at s = 4, a reconfig to s = 2, one ragged step
               (B = 5, b = 2); launch counts must equal their expected
               values (SSD per layer, flash per shared-block
               application); ``measure_pair(zamba2-7b@36, qwen2-vl-2b)``
               and one profiled step.
-7. accum    - on the card, accumulated == full-batch gradients on
+9. accum    - on the card, accumulated == full-batch gradients on
               reduced configs in f32 (the reference's test tolerance),
               the hybrid at one and two units.
-8. serve    - minicpm-2b ``generate``: batch 4, 1024-token prompts,
+10. serve   - minicpm-2b ``generate``: batch 4, 1024-token prompts,
               64 greedy tokens, ``engine="scan"`` and ``"eager"`` (equal
               tokens); prefill and per-token times, launch counts.
-9. engine   - qwen2-vl-2b ``DecodeEngine``, 8 slots, 16 requests, run
+11. engine  - qwen2-vl-2b ``DecodeEngine``, 8 slots, 16 requests, run
               dense, paged and prefix-shared: paged == dense,
               prefix-shared == private and two requests == their solo
               ``generate`` (required); whether cuBLAS rows depend on the
@@ -72,7 +91,7 @@ in order; each prints its own line and any failure exits non-zero:
               excluded), pages, hit rate, launch counts. Then the same
               three engines and solo generation on a reduced config in
               f32, where every token identity is required.
-10. hybrid_serve - zamba2-7b at 81 layers, bf16: ``generate`` at batch 4,
+12. hybrid_serve - zamba2-7b at 81 layers, bf16: ``generate`` at batch 4,
               1024-token prompts, max_len 4096, 64 greedy tokens (prefill
               ms, ms per decode step, tokens/s, peak memory; launches
               exact: ``ssd_fwd`` 81 and ``flash_fwd`` 9 per prefill,
@@ -89,6 +108,7 @@ or of the JAX package. Needs one card.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1150,7 +1170,263 @@ def phase_pair(iters: int = 2):
 
 
 # ---------------------------------------------------------------------- #
-# phase 5: where a step's device time goes
+# phase 5: calibration at full depth
+# ---------------------------------------------------------------------- #
+@contextlib.contextmanager
+def _step_times_recorded():
+    """Keeps the per-step walltimes of every measurement made inside the
+    block, in call order (``core.coschedule.step_times_recorded``, of
+    which each measured mean is the mean), and beside each timed step
+    what the host did inside it that a step does not always do: seconds
+    in Python's garbage collector and the caching allocator's cudaMalloc
+    calls. Yields (step times, causes) per measurement."""
+    import gc
+    import torch
+    from repro_torch.core import coschedule
+    gc_s, gc_start = [0.0], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - gc_start[0]
+
+    def probe():
+        return gc_s[0], torch.cuda.memory_stats().get("num_device_alloc")
+
+    steps, causes = [], []
+    gc.callbacks.append(on_gc)
+    try:
+        with coschedule.step_times_recorded(probe) as recorded:
+            yield steps, causes
+    finally:
+        gc.callbacks.remove(on_gc)
+        for times, probes in recorded:
+            steps.append(times)
+            causes.append([(g1 - g0, None if m0 is None else m1 - m0)
+                           for (g0, m0), (g1, m1) in probes])
+
+
+def _spread(steps) -> dict:
+    times = sorted(steps)
+    return {"mean": sum(times) / len(times), "min": times[0],
+            "median": times[len(times) // 2], "max": times[-1],
+            "max_over_min": times[-1] / times[0], "steps": list(steps)}
+
+
+def _calibration_launches(specs, pairs, iters: int) -> dict:
+    """Each measurement is ``iters`` + 1 steps (the warm-up included) at
+    accum 1: one micro-batch a step and member. The sweep walks the
+    candidate sub-batches of B."""
+    from repro_torch.core.batch_scaling import candidate_sub_batches
+    layers = sum(len(candidate_sub_batches(s.batch)) * s.cfg.n_layers
+                 for s in specs.values())
+    layers += sum(specs[a].cfg.n_layers + specs[b].cfg.n_layers
+                  for a, b in pairs)
+    return _expect(layers * (iters + 1), 1)
+
+
+def _check_calibration(phase, payload, recorded, pairs) -> list:
+    """Every time finite and positive, beta > 0, xi > 1; each
+    measurement's step spread, and each xi beside the range its steps
+    give. ``recorded`` is ``_step_times_recorded``'s (step times, causes)
+    in measurement order: each arch's sweep, then each pair."""
+    steps, causes = recorded
+    rows = []
+    i = 0
+    solo_steps = {}
+    for name, entry in payload["archs"].items():
+        pts = entry["sweep"]["sub_batches"]
+        for b, t in zip(pts, entry["sweep"]["times"]):
+            sp = _spread(steps[i])
+            if not (math.isfinite(t) and t > 0) or abs(sp["mean"] - t) > \
+                    1e-9 * t:
+                raise AssertionError(f"{phase}: {name} b={b}: {t}, {sp}")
+            rows.append({"arch": entry["arch"], "sub_batch": b, **sp})
+            if b == entry["batch"]:
+                solo_steps[name] = steps[i]
+            i += 1
+        if not entry["beta_comp"] > 0:
+            raise AssertionError(f"{phase}: {name} beta "
+                                 f"{entry['beta_comp']} <= 0")
+    for a, b in pairs:
+        entry = payload["pairs"][f"{a}+{b}"]
+        sp = _spread(steps[i])
+        i += 1
+        for key in ("t_a_solo", "t_b_solo", "t_pair", "xi_a", "xi_b"):
+            if not (math.isfinite(entry[key]) and entry[key] > 0):
+                raise AssertionError(f"{phase}: {a}+{b} {key} {entry[key]}")
+        if not (entry["xi_a"] > 1 and entry["xi_b"] > 1):
+            raise AssertionError(f"{phase}: {a}+{b} xi "
+                                 f"{entry['xi_a']}, {entry['xi_b']} <= 1")
+        rows.append({"pair": f"{a}+{b}", **sp,
+                     "xi_a": entry["xi_a"], "xi_b": entry["xi_b"],
+                     "xi_a_range": [sp["min"] / max(solo_steps[a]),
+                                    sp["max"] / min(solo_steps[a])],
+                     "xi_b_range": [sp["min"] / max(solo_steps[b]),
+                                    sp["max"] / min(solo_steps[b])],
+                     "xi_a_structural": entry["xi_a_structural"],
+                     "xi_b_structural": entry["xi_b_structural"]})
+    if i != len(steps):
+        raise AssertionError(f"{phase}: {len(steps)} measurements, "
+                             f"expected {i}")
+    for row, cause in zip(rows, causes):
+        row["spread_over_1.15"] = row["max_over_min"] > 1.15
+        row["gc_s"] = [c[0] for c in cause]
+        row["cuda_mallocs"] = [c[1] for c in cause]
+        log(phase, **row)
+    return rows
+
+
+# Timed steps a measurement. With 3, single host outliers of 1.4-1.8x
+# the median spoiled some means on the card (PERF.md §6).
+CAL_ITERS = 6
+
+
+def phase_calibrate(iters: int = CAL_ITERS):
+    """``run_calibration`` on minicpm-2b and qwen2-vl-2b at full width and
+    depth, bf16, seq 2048, B = 4 at accum 1, sweep points 4, 2, 1; the
+    cross pair and qwen2-vl-2b with itself. Writes the artifact and reads
+    it back through the port's readers."""
+    import torch
+    from repro_torch.core.calibration import (load_artifact,
+                                              perf_params_from_artifact,
+                                              run_calibration,
+                                              save_artifact)
+    from repro_torch.core.interference import InterferenceModel
+    from repro_torch.launch.calibrate import CALIBRATION_PATH, build_specs
+    t_phase = time.perf_counter()
+    specs = build_specs(("minicpm-2b", "qwen2-vl-2b"), batch=BATCH, seq=SEQ)
+    pairs = [("minicpm-2b", "qwen2-vl-2b"), ("qwen2-vl-2b", "qwen2-vl-2b")]
+    log("calibrate", left_out="minicpm-2b+minicpm-2b",
+        reason="two full-width minicpm-2b states with one step's "
+               "transients reckon at ~82 GB at b = 4, over the 80 GB card")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    with _step_times_recorded() as recorded:
+        payload = run_calibration(specs, iters=iters, pairs=pairs)
+    launches = _expect_launches(
+        "calibrate", _calibration_launches(specs, pairs, iters))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _check_calibration("calibrate", payload, recorded, pairs)
+    path = save_artifact(payload, CALIBRATION_PATH)
+    loaded = load_artifact(path)
+    if loaded != json.loads(json.dumps(payload)):
+        raise AssertionError("calibrate: the artifact did not read back")
+    model = InterferenceModel.from_artifact(path)
+    for name, entry in loaded["archs"].items():
+        p = perf_params_from_artifact(entry)
+        log("calibrate", arch=entry["arch"], alpha=p.alpha_comp,
+            beta=p.beta_comp, t_iter_solo=entry["t_iter_solo"],
+            t_iter_b4_from_fit=p.t_iter(entry["batch"]),
+            n_params=entry["n_params"])
+    for key, entry in loaded["pairs"].items():
+        xi = (model.xi(entry["a"], entry["b"]),
+              model.xi(entry["b"], entry["a"]))
+        if xi != (entry["xi_a"], entry["xi_b"]):
+            raise AssertionError(f"calibrate: {key} table {xi}")
+        log("calibrate", pair=key, xi_a=xi[0], xi_b=xi[1],
+            xi_a_structural=entry["xi_a_structural"],
+            xi_b_structural=entry["xi_b_structural"])
+    log("calibrate", summary=True, host=loaded["host"], iters=iters,
+        artifact=os.path.relpath(path, ROOT), launches=launches,
+        max_memory_allocated_gb=peak,
+        seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------- #
+# phase 6: the simulated schedule, replayed
+# ---------------------------------------------------------------------- #
+def phase_replay(iters: int = CAL_ITERS, iters_a: int = 24):
+    """The replay scenario (``launch.replay``) on minicpm-2b at 20 of 40
+    layers and qwen2-vl-2b at 14 of 28, full width, bf16, seq 2048,
+    B = 4: its own calibration (every pair), the SJF-BSBF schedule on it,
+    the plan executed, and each job re-run solo."""
+    import torch
+    from repro_torch.core.calibration import run_calibration
+    from repro_torch.launch import replay
+    from repro_torch.launch.calibrate import build_specs
+    from repro_torch.launch.cluster import accum_for_sub_batch
+    t_phase = time.perf_counter()
+    specs = build_specs((replay.ARCH_A, replay.ARCH_B), batch=BATCH,
+                        seq=SEQ, depth_fraction=0.5)
+    layers = {n: s.cfg.n_layers for n, s in specs.items()}
+    if layers != {"minicpm-2b": 20, "qwen2-vl-2b": 14}:
+        raise AssertionError(f"replay: layers {layers}")
+    log("replay", configs={n: s.cfg.name for n, s in specs.items()},
+        reduced="depth 40 -> 20 (minicpm-2b), 28 -> 14 (qwen2-vl-2b); "
+                "widths as published", seq=SEQ, batch=BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    with _step_times_recorded() as recorded:
+        payload = run_calibration(specs, iters=iters)
+    pairs = [(e["a"], e["b"]) for e in payload["pairs"].values()]
+    cal_launches = _expect_launches(
+        "replay calibration", _calibration_launches(specs, pairs, iters))
+    _check_calibration("replay", payload, recorded, pairs)
+
+    sim, res, plan = replay.simulate(payload, iters_a=iters_a)
+    max_group, reconfigs = replay._structure(sim.log)
+    subs_a = [r["sub_batch"] for r in reconfigs if r["jid"] == 0]
+    batch_a = sim.jobs[0].batch
+    if max_group < 3:
+        raise AssertionError(f"replay: largest sharing group {max_group}")
+    if len(subs_a) < 2 or subs_a[0] >= batch_a or subs_a[-1] != batch_a:
+        raise AssertionError(f"replay: A's reconfigs {subs_a}")
+    jobs = replay.job_specs(sim, specs)
+    totals = {}
+    for phase in plan.phases:
+        for name, q in phase.quotas:
+            totals[name] = totals.get(name, 0) + q
+    if totals != {n: steps_ for n, (_, steps_) in jobs.items()}:
+        raise AssertionError(f"replay: quotas {totals}")
+    log("replay", plan=[{"ops": [[op.kind, op.job, op.sub_batch]
+                                 for op in phase.ops],
+                         "quotas": dict(phase.quotas),
+                         "groups": phase.groups,
+                         "sim_duration": phase.sim_duration}
+                        for phase in plan.phases],
+        predicted=plan.predicted)
+
+    _reset_all()
+    ex, report = replay.execute(plan, jobs, device="cuda")
+    starts = replay.start_sub_batches(plan)
+    layer_micro = 0
+    for name, (spec, steps_) in jobs.items():
+        if report[name]["steps"] != steps_:
+            raise AssertionError(f"replay: {name} took "
+                                 f"{report[name]['steps']} of {steps_}")
+        _check_loss("replay", report[name]["loss"])
+        layer_micro += spec.cfg.n_layers * sum(
+            accum_for_sub_batch(spec.batch, sub)
+            for sub in replay.step_sub_batches(
+                starts[name], ex.runs[name].reconfigs, steps_))
+    exec_launches = _expect_launches("replay", _expect(layer_micro, 1))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    _reset_all()
+    same = replay.solo_equal(ex, plan, jobs, device="cuda")
+    solo_launches = _expect_launches("replay solo", _expect(layer_micro, 1))
+    out = replay.summarize(sim, res, plan, report, payload, same)
+    for name, row in out["jobs"].items():
+        log("replay", job=name, **row, solo_rerun_equal=same[name])
+    log("replay", summary=True, **out["summary"], **out["structure"],
+        launches={"calibration": cal_launches, "execute": exec_launches,
+                  "solo_reruns": solo_launches},
+        max_memory_allocated_gb=peak,
+        seconds=time.perf_counter() - t_phase)
+    if not all(same.values()):
+        raise AssertionError(f"replay: sharing changed training {same}")
+    del ex
+    torch.cuda.empty_cache()
+    return {"calibration": cal_launches, "execute": exec_launches,
+            "solo_reruns": solo_launches}
+
+
+# ---------------------------------------------------------------------- #
+# phase 7: where a step's device time goes
 # ---------------------------------------------------------------------- #
 def _category(kernel: str) -> str:
     if any(k in kernel for k in SSD_KERNELS):
@@ -1212,7 +1488,7 @@ def phase_profile():
 
 
 # ---------------------------------------------------------------------- #
-# phase 6: the hybrid family through the executor
+# phase 8: the hybrid family through the executor
 # ---------------------------------------------------------------------- #
 def _expect_hybrid(cfg, micro: int) -> dict:
     # remat per unit: each micro-batch runs every unit's forward twice
@@ -1320,7 +1596,7 @@ def phase_hybrid(iters: int = 2):
 
 
 # ---------------------------------------------------------------------- #
-# phase 7: accumulated == full batch on the card
+# phase 9: accumulated == full batch on the card
 # ---------------------------------------------------------------------- #
 def phase_accum():
     import dataclasses
@@ -1360,7 +1636,7 @@ def phase_accum():
 
 
 # ---------------------------------------------------------------------- #
-# phase 8: serving through generate
+# phase 10: serving through generate
 # ---------------------------------------------------------------------- #
 def phase_serve():
     """minicpm-2b at full width, bf16: batch 4, 1024-token prompts, 64
@@ -1458,7 +1734,7 @@ def _profile_decode(cfg, params, prompt, steps: int = 8, phase="serve"):
 
 
 # ---------------------------------------------------------------------- #
-# phase 9: the continuous-batching engine
+# phase 11: the continuous-batching engine
 # ---------------------------------------------------------------------- #
 def _engine_requests(cfg):
     """16 prompts: a shared 1024-token system prefix plus 256-1024 tokens
@@ -1684,7 +1960,7 @@ def phase_engine():
 
 
 # ---------------------------------------------------------------------- #
-# phase 10: serving the hybrid at full depth
+# phase 12: serving the hybrid at full depth
 # ---------------------------------------------------------------------- #
 def _hybrid_requests(cfg):
     """16 prompts of 256-1024 tokens, 32-64 new tokens each, from one
@@ -1810,6 +2086,8 @@ def main() -> int:
     errs, timing = phase_parity()
     launches = dict(phase_solo())
     phase_pair()
+    launches_calibrate = phase_calibrate()
+    launches_replay = phase_replay()
     phase_profile()
     hybrid = phase_hybrid()
     launches.update(ssd_fwd=hybrid["ssd_fwd"], ssd_bwd=hybrid["ssd_bwd"])
@@ -1831,6 +2109,11 @@ def main() -> int:
             "launches_hybrid_serve": {
                 path: n[name] for path, n in serve_paths.items()
                 if n.get(name)}})
+        if launches_calibrate.get(name):
+            # the calibration and replay paths' own counts
+            kernels[-1]["launches_calibrate"] = launches_calibrate[name]
+            kernels[-1]["launches_replay"] = {
+                path: n[name] for path, n in launches_replay.items()}
         if name in SSD_PASSES:
             kernels[-1].update(
                 cuda_kernels=[f"ssd_{p}_kernel" for p in SSD_PASSES[name]],

@@ -1,2 +1,5 @@
-"""Co-scheduling measurements of the port (the simulator itself stays
-framework-free in the reference and is not part of this slice)."""
+"""The scheduling side of the port: its own copy of the reference's
+simulator core (performance model, interference, jobs and cluster,
+Theorem 1, Algorithm 2, the event engine, ``SJF_BSBF``), the
+calibration artifact, and the co-scheduling measurements on the device
+(``core.coschedule``, which imports the executor and PyTorch)."""

@@ -7,20 +7,46 @@ inside one group step, and
 feeds the scheduler's interference model. Every measurement builds its
 own executor, so a job's state is released before the next measurement
 starts and a solo run never shares memory with the pair that follows.
+The whole loop (alpha/beta fits, the versioned artifact) is
+:func:`core.calibration.run_calibration`.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.launch.cluster import JobSpec, ScheduleExecutor
 
-__all__ = ["JobSpec", "measure_group", "measure_pair", "measure_solo"]
+from .interference import InterferenceModel
+from .interference import structural_xi as _structural_xi
+
+__all__ = ["JobSpec", "calibrate_interference", "measure_group",
+           "measure_pair", "measure_solo", "step_times_recorded",
+           "structural_xi"]
+
+# the open recorders of step_times_recorded, innermost last
+_recorders: List[tuple] = []
 
 
-def _measure(specs, iters: int, states=None, device=None) -> float:
-    """Mean seconds per group step over ``iters`` calls after one warm-up
-    step (first-call costs such as library handle set-up and the kernel
-    build stay out of the mean)."""
+@contextlib.contextmanager
+def step_times_recorded(probe: Optional[Callable[[], Any]] = None):
+    """Yields a list that receives, for every measurement made inside the
+    block and in call order, ``(times, probes)``: the seconds of each of
+    its timed steps (of which the measured mean is the mean), and, when
+    ``probe`` is given, its readings ``(before, after)`` around each timed
+    step, outside the step's own clock."""
+    sink: List[tuple] = []
+    _recorders.append((sink, probe))
+    try:
+        yield sink
+    finally:
+        _recorders.remove((sink, probe))
+
+
+def _step_times(specs, iters: int, states=None, device=None) -> List[float]:
+    """Seconds of each of ``iters`` group steps after one warm-up step
+    (first-call costs such as library handle set-up and the kernel build
+    stay out). Their spread says how far one mean can be trusted."""
     ex = ScheduleExecutor(device=device)
     names = []
     for i, spec in enumerate(specs):
@@ -29,8 +55,21 @@ def _measure(specs, iters: int, states=None, device=None) -> float:
         ex.submit(name, spec, iters + 1)
         ex.start(name, state=None if states is None else states[i])
     ex.step_group(names)                       # warm-up
-    return sum(ex.step_group(names)["walltime"]
-               for _ in range(iters)) / iters
+    sink, probe = _recorders[-1] if _recorders else (None, None)
+    times, probes = [], []
+    for _ in range(iters):
+        before = probe() if probe is not None else None
+        times.append(ex.step_group(names)["walltime"])
+        if probe is not None:
+            probes.append((before, probe()))
+    if sink is not None:
+        sink.append((times, probes))
+    return times
+
+
+def _measure(specs, iters: int, states=None, device=None) -> float:
+    """Mean seconds per group step of :func:`_step_times`."""
+    return sum(_step_times(specs, iters, states, device)) / iters
 
 
 def measure_solo(spec: JobSpec, iters: int = 3, *,
@@ -69,3 +108,35 @@ def measure_pair(spec_a: JobSpec, spec_b: JobSpec, iters: int = 3, *,
 def measure_group(specs, iters: int = 3, states=None, device=None) -> float:
     """Mean seconds per N-way group step."""
     return _measure(list(specs), iters, states, device)
+
+
+def structural_xi(t_me: float, t_other: float, *, overlap: float = 0.0,
+                  mem_frac: float = 0.0, hbm_pressure: float = 0.15
+                  ) -> float:
+    """Analytic structural model (no execution): strict time multiplexing
+    gives xi_me = 1 + t_other/t_me; ``overlap`` in [0,1) credits
+    pipelined overlap between the two programs. The shared
+    implementation (with the scheduler's ratio clamp parameterized away)
+    is :func:`core.interference.structural_xi`."""
+    return _structural_xi(t_me, t_other, contention=1.0 - overlap,
+                          ratio_cap=None, mem_frac=mem_frac,
+                          hbm_pressure=hbm_pressure)
+
+
+def calibrate_interference(specs: Dict[str, JobSpec], iters: int = 2,
+                           device=None) -> InterferenceModel:
+    """Fill an InterferenceModel table from real pairwise measurements on
+    ``device``. Solo timings are measured once per spec and reused for
+    every pair. The full pipeline (alpha/beta fits, memory estimates, the
+    versioned artifact) is :func:`core.calibration.run_calibration`."""
+    model = InterferenceModel()
+    names = sorted(specs)
+    solo = {name: measure_solo(specs[name], iters, device=device)
+            for name in names}
+    for i, a in enumerate(names):
+        for b in names[i:]:
+            r = measure_pair(specs[a], specs[b], iters=iters,
+                             t_a_solo=solo[a], t_b_solo=solo[b],
+                             device=device)
+            model.set_pair(a, b, r["xi_a"], r["xi_b"])
+    return model

@@ -15,8 +15,15 @@ composition and no warm-up on zero states: ``core.coschedule`` warms up
 with one real step before it times. Walltimes bracket each group step
 with ``torch.cuda.synchronize()``.
 
-Fault injection, retry, checkpoints and ``plan_from_sim`` come in a later
-slice.
+:func:`plan_from_sim` closes the loop with the simulator: it replays a
+``core.simulator.Simulator`` event log into a :class:`SchedulePlan`
+(phases between schedule events, each with per-job step quotas derived
+from the simulated rates, and the sharing groups as connected components
+of GPU co-tenancy), which :meth:`ScheduleExecutor.execute` runs,
+reporting measured per-job execution seconds beside the simulator's
+prediction (``launch.replay``).
+
+Fault injection, retry and checkpoints come in a later slice.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import dataclasses
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -134,11 +141,19 @@ class PlanPhase:
     """Interval between two schedule events: ``ops`` fire at entry, then
     every sharing group advances its members' step ``quotas``
     round-robin. A group's walltime is attributed to all its running
-    members."""
+    members: a time-multiplexed tenant pays for its co-tenants' rounds
+    as it would on a shared GPU."""
 
     ops: Tuple[PlanOp, ...]
     quotas: Tuple[Tuple[str, int], ...]
     groups: Tuple[Tuple[str, ...], ...]
+    sim_duration: float = 0.0       # predicted interval length (seconds)
+
+
+@dataclass
+class SchedulePlan:
+    phases: List[PlanPhase]
+    predicted: Dict[str, Dict[str, float]]   # name -> {exec_seconds, jct}
 
 
 class ScheduleExecutor:
@@ -238,11 +253,14 @@ class ScheduleExecutor:
         else:
             raise ValueError(f"unknown plan op {op.kind!r}")
 
-    def execute(self, phases: Sequence[PlanPhase]
+    def execute(self, plan: "SchedulePlan | Sequence[PlanPhase]",
                 ) -> Dict[str, Dict[str, Any]]:
-        """Run schedule phases to completion; returns the per-job report
-        (each group phase's walltime attributed to every running
-        member)."""
+        """Run a schedule plan to completion and return the per-job
+        report: measured execution seconds (each group phase's walltime
+        attributed to every running member), steps, final sub-batch, and,
+        when the plan carries simulator predictions, the
+        predicted-vs-measured error."""
+        phases = plan.phases if isinstance(plan, SchedulePlan) else plan
         for phase in phases:
             for op in phase.ops:
                 self._apply(op)
@@ -262,4 +280,165 @@ class ScheduleExecutor:
                     run = self.runs[n]
                     if run.started and not run.finished:
                         run.walltime += t_group
-        return {name: run.report() for name, run in self.runs.items()}
+        report = {name: run.report() for name, run in self.runs.items()}
+        if isinstance(plan, SchedulePlan):
+            for name, pred in plan.predicted.items():
+                rep = report.get(name)
+                if rep is None:
+                    continue
+                rep["predicted_exec"] = pred["exec_seconds"]
+                rep["measured_exec"] = rep["walltime"]
+                if pred["exec_seconds"] > 0:
+                    rep["error"] = (rep["walltime"] - pred["exec_seconds"]
+                                    ) / pred["exec_seconds"]
+        return report
+
+
+# ---------------------------------------------------------------------- #
+# Simulator-log replay: schedule -> executable plan
+# ---------------------------------------------------------------------- #
+def _components(placements: Mapping[int, frozenset]) -> List[List[int]]:
+    """Connected components of the sharing graph: jobs sharing any GPU
+    (directly or transitively) execute as one time-multiplexed group."""
+    parent: Dict[int, int] = {j: j for j in placements}
+
+    def find(x: int) -> int:
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    by_gpu: Dict[int, List[int]] = {}
+    for jid, gpus in placements.items():
+        for g in gpus:
+            by_gpu.setdefault(g, []).append(jid)
+    for tenants in by_gpu.values():
+        for other in tenants[1:]:
+            ra, rb = find(tenants[0]), find(other)
+            if ra != rb:
+                parent[rb] = ra
+    comps: Dict[int, List[int]] = {}
+    for j in placements:
+        comps.setdefault(find(j), []).append(j)
+    return [sorted(c) for c in comps.values()]
+
+
+def plan_from_sim(log: Sequence[tuple], jobs: Mapping[int, Any],
+                  interference, gpu_capacity_bytes: float,
+                  *, names: Optional[Mapping[int, str]] = None,
+                  ) -> SchedulePlan:
+    """Translate a ``core.simulator.Simulator`` event log into an
+    executable :class:`SchedulePlan` (the reference's ``plan_from_sim``,
+    same arithmetic).
+
+    The log's ``start``/``config``/``reconfig``/``finish`` entries become
+    plan ops; between events, each running job's simulated progress
+    (rate x interval, with the rate re-derived from its PerfParams
+    sub-batch timing and the max-xi-over-co-runners rule the engine
+    uses) accrues fractionally and is emitted as integer step quotas by
+    cumulative rounding, so every job executes exactly ``job.iters``
+    steps by its finish event. Sharing groups are the connected
+    components of GPU co-tenancy. ``jobs`` maps jid -> the simulated
+    ``core.job.Job``; ``names`` optionally renames jobs for the executor
+    (default ``job<jid>``)."""
+    names = names or {}
+
+    def name_of(jid: int) -> str:
+        return names.get(jid, f"job{jid}")
+
+    placements: Dict[int, frozenset] = {}
+    sub_batch: Dict[int, int] = {}
+    cum: Dict[int, float] = {}
+    emitted: Dict[int, int] = {}
+
+    def rate(jid: int) -> float:
+        job = jobs[jid]
+        base = job.perf.t_iter_sub(job.batch, sub_batch[jid])
+        xi = 1.0
+        others = set()
+        for g in placements[jid]:
+            for other in by_gpu.get(g, ()):
+                if other != jid:
+                    others.add(other)
+        for other in others:
+            oj = jobs[other]
+            mem = (job.perf.mem_bytes(sub_batch[jid])
+                   + oj.perf.mem_bytes(sub_batch[other]))
+            xi = max(xi, interference.xi(
+                job.model, oj.model, t_me=base,
+                t_other=oj.perf.t_iter_sub(oj.batch, sub_batch[other]),
+                mem_frac=mem / gpu_capacity_bytes))
+        return 1.0 / (base * xi)
+
+    # group log entries by timestamp (the log is time-ordered)
+    times: List[float] = []
+    grouped: List[List[tuple]] = []
+    for entry in log:
+        if not times or entry[0] > times[-1] + 1e-12:
+            times.append(entry[0])
+            grouped.append([entry])
+        else:
+            grouped[-1].append(entry)
+
+    phases: List[PlanPhase] = []
+    predicted: Dict[str, Dict[str, float]] = {}
+    by_gpu: Dict[int, set] = {}
+
+    for k, (t, entries) in enumerate(zip(times, grouped)):
+        ops: List[PlanOp] = []
+        # finishes first (they free GPUs), then starts/reconfigs — the
+        # engines order completions before the scheduling pass too
+        for entry in sorted(entries, key=lambda e: e[1] != "finish"):
+            kind, jid = entry[1], entry[2]
+            if kind == "finish":
+                job = jobs[jid]
+                ops.append(PlanOp("finish", name_of(jid)))
+                predicted[name_of(jid)] = {
+                    "exec_seconds": job.finish_time - job.start_time,
+                    "jct": job.jct(),
+                }
+                for g in placements.pop(jid, ()):
+                    by_gpu[g].discard(jid)
+            elif kind == "start":
+                placements[jid] = frozenset(entry[3])
+                for g in entry[3]:
+                    by_gpu.setdefault(g, set()).add(jid)
+                cum.setdefault(jid, 0.0)
+                emitted.setdefault(jid, 0)
+            elif kind == "config":
+                sub_batch[jid] = int(entry[3])
+                ops.append(PlanOp("start", name_of(jid),
+                                  sub_batch=int(entry[3])))
+            elif kind == "reconfig":
+                sub_batch[jid] = int(entry[3])
+                ops.append(PlanOp("reconfig", name_of(jid),
+                                  sub_batch=int(entry[3])))
+            elif kind in ("preempt", "fail_job", "fail_server",
+                          "recover_server"):
+                raise ValueError(
+                    "plan_from_sim only replays non-preemptive, "
+                    f"fault-free schedules (saw {kind!r})")
+        # accrue simulated progress until the next event
+        dt = (times[k + 1] - t) if k + 1 < len(times) else 0.0
+        quotas: List[Tuple[str, int]] = []
+        if placements and dt > 0:
+            rates = {jid: rate(jid) for jid in placements}
+            for jid in sorted(placements):
+                job = jobs[jid]
+                cum[jid] = min(float(job.iters), cum[jid] + rates[jid] * dt)
+                # cumulative rounding: totals land on job.iters exactly
+                # (the snap tolerance mirrors the engines' relative
+                # _FINISH_TOL so a logged finish always tops up)
+                target = int(round(cum[jid]))
+                if cum[jid] >= job.iters - 1e-6 * max(1.0, job.iters):
+                    target = int(round(job.iters))
+                q = target - emitted[jid]
+                emitted[jid] = target
+                quotas.append((name_of(jid), q))
+            groups = tuple(tuple(name_of(j) for j in comp)
+                           for comp in _components(placements))
+        else:
+            groups = ()
+        phases.append(PlanPhase(ops=tuple(ops), quotas=tuple(quotas),
+                                groups=groups, sim_duration=dt))
+    return SchedulePlan(phases=phases, predicted=predicted)

@@ -59,12 +59,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None
                 ) -> Dict:
     """Random parameters from ``seed`` in ``dtype`` (default cfg.dtype).
     The values differ from the reference's ``jax.random`` init; tests
-    carry the reference's weights across with ``checkpoint.bridge``."""
+    carry the reference's weights across with ``checkpoint.bridge``.
+    ``device="meta"`` gives the shapes alone (no memory, no values)."""
     _require_ported(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     n, d = cfg.n_units, cfg.d_model
 
     def ones(*shape):
