@@ -7,8 +7,10 @@ Drives the port's paths (``src/repro_torch``) at full published width:
 co-scheduled, gradient-accumulated training of minicpm-2b and
 qwen2-vl-2b with attention on the hand-written CUDA flash kernels; the
 calibration of (alpha, beta, xi) from those steps and the replay of an
-SJF-BSBF schedule simulated on them through the executor; training of the hybrid zamba2-7b (36 of its 81 layers) on the CUDA
-Mamba2 SSD chunk-scan kernels and the flash kernels at head_dim 112;
+SJF-BSBF schedule simulated on them through the executor; the
+executor's fault recovery (checkpoints, restart, retry, member drop)
+and the training driver; training of the hybrid zamba2-7b (36 of its
+81 layers) on the CUDA Mamba2 SSD chunk-scan kernels and the flash kernels at head_dim 112;
 serving (prefill, KV-cache decode and the continuous-batching
 ``DecodeEngine``) on the flash-attention forward and the two CUDA
 flash-decode kernels; and serving zamba2-7b at all 81 layers, its
@@ -69,21 +71,42 @@ in order; each prints its own line and any failure exits non-zero:
               ``job.iters`` steps, launch counts exact, and every job's
               final parameters bitwise its solo re-run's. Prints each
               job's predicted and measured seconds and their error.
-7. profile  - one profiled step of each model: device time by kernel
+7. recovery - minicpm-2b at 4 of 40 layers (qwen2-vl-2b at 4 of 28),
+              full width, bf16, seq 2048, B = 4, checkpoints in a
+              temporary directory removed at the end: (a) 6 steps
+              uninterrupted against a run with a checkpoint every 2
+              steps, a scripted fatal fault at call 4 and ``restart``:
+              params, moments, step and loss at step 6 bitwise equal,
+              2 checkpoints written; (b) a transient fault retried once,
+              bitwise no fault; (c) qwen2-vl-2b dropped from the pair by
+              a fatal fault, minicpm-2b bitwise its solo run; (d) the
+              same through a one-phase ``execute`` plan. Flash launch
+              counts exact (a retried or dropped call launches nothing).
+              Prints the checkpoint's bytes and write seconds, its stored
+              CRC beside one recomputed from the file, the step time with
+              and without a write in flight, peak memory. Then the
+              reduced f32 qwen2-vl-2b engine, dense and paged, with a
+              transient fault before segment 1: tokens those of the
+              fault-free run, one retry; an exhausted budget raises.
+8. train    - ``launch.quickstart`` for 60 steps on the card (the loss
+              must fall; s/step), then ``launch.train.main`` on
+              minicpm-2b at full width and depth, bf16, B = 4, seq 2048,
+              accum 2, 3 steps: finite loss, exact flash launches.
+9. profile  - one profiled step of each model: device time by kernel
               category and the device's busy share of the step.
-8. hybrid   - zamba2-7b at 36 of 81 layers through ``ScheduleExecutor``:
+10. hybrid  - zamba2-7b at 36 of 81 layers through ``ScheduleExecutor``:
               2 steps at s = 4, a reconfig to s = 2, one ragged step
               (B = 5, b = 2); launch counts must equal their expected
               values (SSD per layer, flash per shared-block
               application); ``measure_pair(zamba2-7b@36, qwen2-vl-2b)``
               and one profiled step.
-9. accum    - on the card, accumulated == full-batch gradients on
+11. accum   - on the card, accumulated == full-batch gradients on
               reduced configs in f32 (the reference's test tolerance),
               the hybrid at one and two units.
-10. serve   - minicpm-2b ``generate``: batch 4, 1024-token prompts,
+12. serve   - minicpm-2b ``generate``: batch 4, 1024-token prompts,
               64 greedy tokens, ``engine="scan"`` and ``"eager"`` (equal
               tokens); prefill and per-token times, launch counts.
-11. engine  - qwen2-vl-2b ``DecodeEngine``, 8 slots, 16 requests, run
+13. engine  - qwen2-vl-2b ``DecodeEngine``, 8 slots, 16 requests, run
               dense, paged and prefix-shared: paged == dense,
               prefix-shared == private and two requests == their solo
               ``generate`` (required); whether cuBLAS rows depend on the
@@ -91,7 +114,7 @@ in order; each prints its own line and any failure exits non-zero:
               excluded), pages, hit rate, launch counts. Then the same
               three engines and solo generation on a reduced config in
               f32, where every token identity is required.
-12. hybrid_serve - zamba2-7b at 81 layers, bf16: ``generate`` at batch 4,
+14. hybrid_serve - zamba2-7b at 81 layers, bf16: ``generate`` at batch 4,
               1024-token prompts, max_len 4096, 64 greedy tokens (prefill
               ms, ms per decode step, tokens/s, peak memory; launches
               exact: ``ssd_fwd`` 81 and ``flash_fwd`` 9 per prefill,
@@ -1426,7 +1449,362 @@ def phase_replay(iters: int = CAL_ITERS, iters_a: int = 24):
 
 
 # ---------------------------------------------------------------------- #
-# phase 7: where a step's device time goes
+# phase 7: checkpoints, fault recovery and segment retry
+# ---------------------------------------------------------------------- #
+# minicpm-2b at 4 of its 40 layers (qwen2-vl-2b at 4 of 28), full width:
+# one checkpoint of the bf16 params and f32 moments is ~5.3 GB, where
+# the full depth's would be ~27 GB
+RECOVERY_LAYERS = 4
+RECOVERY_STEPS = 6
+
+
+def _recovery_specs():
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cluster import JobSpec
+    specs = {}
+    for i, name in enumerate(("minicpm-2b", "qwen2-vl-2b")):
+        cfg = get_config(name)
+        cfg = dataclasses.replace(cfg, name=f"{cfg.name}@{RECOVERY_LAYERS}",
+                                  n_layers=RECOVERY_LAYERS)
+        specs[name] = JobSpec(cfg, batch=BATCH, seq=SEQ, seed=i)
+    return specs
+
+
+def _checkpoint_dir(need_bytes: int) -> str:
+    """A fresh directory under the temporary directory, which must have
+    ``need_bytes`` free."""
+    import shutil
+    import tempfile
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    if free < need_bytes:
+        raise RuntimeError(
+            f"recovery: checkpoints need {need_bytes / 1e9:.1f} GB free in "
+            f"{tempfile.gettempdir()}, which has {free / 1e9:.1f} GB")
+    return tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+
+
+def _bitwise(run, base) -> dict:
+    """Which parts of ``run``'s state are bitwise ``base``'s."""
+    import torch
+    from repro_torch.tree import flatten
+
+    def same(a, b):
+        fa, fb = flatten(a), flatten(b)
+        return sorted(fa) == sorted(fb) and all(
+            torch.equal(fa[k], fb[k]) for k in fa)
+    out = {"params": same(run.params, base.params)}
+    if run.opt is not None:
+        out.update(m=same(run.opt.m, base.opt.m),
+                   v=same(run.opt.v, base.opt.v),
+                   step=run.opt.step == base.opt.step,
+                   loss=torch.equal(run.last_metrics["loss"],
+                                    base.last_metrics["loss"]))
+    return out
+
+
+def _require(phase: str, what: str, same: dict) -> None:
+    if not all(same.values()):
+        raise AssertionError(f"{phase}: {what} not bitwise: {same}")
+
+
+def _recovery_training(specs, ckdir):
+    """(a)-(d) and the checkpoint measurements; returns (layer-steps run,
+    measurements)."""
+    import os
+    import torch
+    from repro_torch.checkpoint import checkpoint_crc
+    from repro_torch.checkpoint.npz import _content_crc, _read
+    from repro_torch.launch.cluster import (FaultSpec, PlanOp, PlanPhase,
+                                            ScheduleExecutor,
+                                            ScriptedFaults)
+    spec_a, spec_b = specs["minicpm-2b"], specs["qwen2-vl-2b"]
+    la, lb = spec_a.cfg.n_layers, spec_b.cfg.n_layers
+    n = RECOVERY_STEPS
+    out = {}
+
+    base = ScheduleExecutor()
+    base.submit("a", spec_a, n)
+    base.start("a")
+    t_plain = [base.step_group(["a"])["walltime"] for _ in range(n)]
+    ref = base.runs["a"]
+    layer_steps = la * base.calls
+
+    # (a) fatal fault at call 4, checkpoints every 2 steps, restart. The
+    # step-2 write runs on the writer thread during steps 3 and 4, which
+    # are timed against the uninterrupted run's steps 3 and 4.
+    ex = ScheduleExecutor(checkpoint_dir=ckdir, checkpoint_every=2,
+                          fault_injector=ScriptedFaults(
+                              [FaultSpec(call=4, job="a", kind="fatal")]))
+    ex.submit("a", spec_a, n)
+    ex.start("a")
+    t_ex = []
+    for _ in range(4):
+        res = ex.step_group(["a"])
+        if "dropped" in res:
+            raise AssertionError("recovery: dropped before the fault")
+        t_ex.append(res["walltime"])
+    in_flight = ex.checkpoints_written == 0
+    if ex.step_group(["a"]).get("dropped") != "a":
+        raise AssertionError("recovery: the fatal fault did not drop")
+    run = ex.runs["a"]
+    if not run.failed or run.last_ckpt_step != 4:
+        raise AssertionError(f"recovery: failed {run.failed}, last "
+                             f"checkpoint {run.last_ckpt_step}")
+    t0 = time.perf_counter()
+    ex.restart("a")
+    out["restart_s"] = time.perf_counter() - t0
+    if run.steps_done != 4 or ex.checkpoints_written != 2:
+        raise AssertionError(f"recovery: restart at {run.steps_done}, "
+                             f"{ex.checkpoints_written} checkpoints")
+    while run.steps_done < n:
+        ex.step_group(["a"])
+    same = _bitwise(run, ref)
+    _require("recovery (a) restart", "step 6", same)
+    ex.close()
+    if ex.calls != n:
+        raise AssertionError(f"recovery: {ex.calls} calls in (a)")
+    layer_steps += la * ex.calls
+    path = os.path.join(ckdir, "a.npz")
+    stored = checkpoint_crc(path)
+    t0 = time.perf_counter()
+    recomputed = _content_crc({k: v for k, v in _read(path).items()
+                               if k != "__crc32__"})
+    t_recompute = time.perf_counter() - t0
+    out.update(
+        restart_bitwise=same, checkpoints_written=ex.checkpoints_written,
+        checkpoint_bytes=os.path.getsize(path),
+        checkpoint_snapshot_s=[c[0] for c in ex.checkpoint_seconds],
+        checkpoint_write_s=[c[1] for c in ex.checkpoint_seconds],
+        crc_stored=stored, crc_recomputed=recomputed,
+        crc_recompute_from_file_s=t_recompute,
+        step_s_plain=t_plain, step_s_run_a=t_ex,
+        step_s_no_write=t_plain[2:4], step_s_write_in_flight=t_ex[2:4],
+        write_in_flight_through_steps_3_4=in_flight)
+    if stored != recomputed:
+        raise AssertionError(f"recovery: stored CRC {stored:#010x} != "
+                             f"recomputed {recomputed:#010x}")
+    del ex, run
+
+    # (b) a transient fault, retried once: the same bits as no fault
+    ex = ScheduleExecutor(fault_injector=ScriptedFaults(
+        [FaultSpec(call=2, job="a")]))
+    ex.submit("a", spec_a, n)
+    ex.start("a")
+    for _ in range(n):
+        if "dropped" in ex.step_group(["a"]):
+            raise AssertionError("recovery (b): dropped")
+    if ex.runs["a"].retries != 1 or ex.retries_total != 1:
+        raise AssertionError(f"recovery (b): {ex.retries_total} retries")
+    same = _bitwise(ex.runs["a"], ref)
+    _require("recovery (b) retry", "the retried run", same)
+    out["retry_bitwise"] = same
+    layer_steps += la * ex.calls
+    del ex
+
+    # (c) the pair: a fatal fault drops qwen2-vl-2b only
+    ex = ScheduleExecutor(fault_injector=ScriptedFaults(
+        [FaultSpec(call=2, job="b", kind="fatal")]))
+    for name, spec in (("a", spec_a), ("b", spec_b)):
+        ex.submit(name, spec, n)
+        ex.start(name)
+    for _ in range(2):
+        ex.step_group(["a", "b"])
+    if ex.step_group(["a", "b"]).get("dropped") != "b":
+        raise AssertionError("recovery (c): b was not dropped")
+    while ex.runs["a"].steps_done < n:
+        ex.step_group(["a"])
+    same = _bitwise(ex.runs["a"], ref)
+    _require("recovery (c) pair", "the survivor", same)
+    out["pair_survivor_bitwise"] = same
+    layer_steps += la * ex.runs["a"].steps_done + lb * ex.runs["b"].steps_done
+    del ex
+
+    # (d) a one-phase plan through execute, the fault in the middle
+    ex = ScheduleExecutor(fault_injector=ScriptedFaults(
+        [FaultSpec(call=n // 2, job="b", kind="fatal")]))
+    ex.submit("a", spec_a, n)
+    ex.submit("b", spec_b, n)
+    report = ex.execute([PlanPhase(
+        ops=(PlanOp("start", "a"), PlanOp("start", "b")),
+        quotas=(("a", n), ("b", n)), groups=(("a", "b"),))])
+    if (report["a"]["steps"], report["a"]["failed"], report["b"]["steps"],
+            report["b"]["failed"]) != (n, False, n // 2, True):
+        raise AssertionError(f"recovery (d): report {report}")
+    same = _bitwise(ex.runs["a"], ref)
+    _require("recovery (d) execute", "the survivor", same)
+    out["plan_survivor_bitwise"] = same
+    out["plan_report"] = {k: {f: v[f] for f in ("steps", "failed", "walltime")}
+                          for k, v in report.items()}
+    layer_steps += la * n + lb * (n // 2)
+    del ex, base, ref
+    torch.cuda.empty_cache()
+    return layer_steps, out
+
+
+def _engine_retry() -> dict:
+    """The reduced f32 qwen2-vl-2b engine (``_engine_small``'s config),
+    dense and paged, with a scripted transient fault before segment 1:
+    its tokens must be the fault-free run's and ``stats["retries"]`` 1;
+    a budget that runs out raises ``TransientFault``. Returns the faulted
+    runs' launches."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cluster import (FaultSpec, ScriptedFaults,
+                                            TransientFault)
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.models import init_params
+    from repro_torch.util.retry import RetryPolicy
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b").reduced(),
+                              dtype="float32")
+    params = init_params(cfg, 2)
+    rng = np.random.default_rng(2)
+    reqs = [(rng.integers(0, cfg.vocab, int(rng.integers(20, 60))),
+             int(rng.integers(8, 25))) for _ in range(8)]
+    kw = dict(n_slots=4, max_len=128, segment=8)
+    launches = {}
+    for way, extra in (("dense", {}),
+                       ("paged", {"paged": True, "page_size": 16})):
+        expect = _engine_launches(cfg, 8, len(reqs), extra.get("paged"))
+        want, st0, _, _ = _run_engine(cfg, params, reqs, expect, **kw,
+                                      **extra)
+        got, st, launches[f"engine_retried_{way}"], _ = _run_engine(
+            cfg, params, reqs, expect, **kw, **extra,
+            fault_injector=ScriptedFaults([FaultSpec(call=1,
+                                                     job="segment")]),
+            retry_policy=RetryPolicy(attempts=3, base=0.0))
+        row = {"way": way, "tokens_vs_fault_free": _agreement(got, want),
+               "retries": st["retries"], "segments": st["segments"],
+               "segments_fault_free": st0["segments"]}
+        log("recovery", engine=True, **row)
+        if (got != want or st["retries"] != 1
+                or st["segments"] != st0["segments"]):
+            raise AssertionError(f"recovery: engine retry {row}")
+    eng = DecodeEngine(cfg, params, **kw, fault_injector=ScriptedFaults(
+        [FaultSpec(call=1, job="segment", times=2)]),
+        retry_policy=RetryPolicy(attempts=2, base=0.0))
+    for p, n in reqs:
+        eng.submit(p, n)
+    try:
+        eng.run()
+    except TransientFault:
+        log("recovery", engine=True, exhausted_budget_raised="TransientFault")
+    else:
+        raise AssertionError("recovery: an exhausted segment retry did "
+                             "not raise")
+    return launches
+
+
+def phase_recovery():
+    """minicpm-2b at 4 of 40 layers (and qwen2-vl-2b at 4 of 28), full
+    width, bf16, seq 2048, B = 4 through the executor's fault paths:
+    (a) fail at call 4, restart from the step-4 checkpoint, step 6
+    bitwise the uninterrupted run's; (b) a transient retried once, bitwise
+    no fault; (c) a pair whose qwen2-vl-2b is dropped, the survivor
+    bitwise its solo run; (d) the same through ``execute``. Then the
+    checkpoint's bytes, write seconds and CRC, the step with and without a
+    write in flight, and the engine's segment retry."""
+    import resource
+    import shutil
+    import torch
+    from repro_torch.models import init_params, param_count
+    t_phase = time.perf_counter()
+    specs = _recovery_specs()
+    n_params = param_count(init_params(specs["minicpm-2b"].cfg, 0,
+                                       device="meta"))
+    # bf16 params, f32 m and v
+    reckoned = n_params * (2 + 4 + 4)
+    # an overwrite holds the tmp file and the old one for a moment
+    ckdir = _checkpoint_dir(2 * reckoned + (1 << 30))
+    log("recovery", configs={n: s.cfg.name for n, s in specs.items()},
+        reduced=f"depth 40 -> {RECOVERY_LAYERS} (minicpm-2b), 28 -> "
+                f"{RECOVERY_LAYERS} (qwen2-vl-2b), for the checkpoint's "
+                f"size; widths as published",
+        seq=specs["minicpm-2b"].seq, batch=specs["minicpm-2b"].batch,
+        params=n_params,
+        reckoned_checkpoint_gb=reckoned / 1e9, checkpoint_dir=ckdir,
+        free_gb=shutil.disk_usage(ckdir).free / 1e9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    try:
+        layer_steps, out = _recovery_training(specs, ckdir)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    launches = {"training": _expect_launches("recovery",
+                                             _expect(layer_steps, 1))}
+    log("recovery", **out, layer_steps=layer_steps,
+        launches=launches["training"],
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        host_max_rss_gb=resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 1e6)
+    launches.update(_engine_retry())
+    log("recovery", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+# ---------------------------------------------------------------------- #
+# phase 8: the training driver and the quickstart
+# ---------------------------------------------------------------------- #
+QUICKSTART_STEPS = 60
+TRAIN_ARGS = ["--arch", "minicpm-2b", "--dtype", "bfloat16", "--batch",
+              str(BATCH), "--seq", str(SEQ), "--accum-steps", "2",
+              "--steps", "3", "--log-every", "1"]
+
+
+def phase_train():
+    """``launch.quickstart`` for 60 steps (the shrunk f32 minicpm-2b,
+    structured batches, accum 2): the loss must fall. Then
+    ``launch.train.main`` on minicpm-2b at full width and depth, bf16,
+    B = 4, seq 2048, accum 2, 3 steps: a finite loss and exact flash
+    launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import quickstart, train
+    t_phase = time.perf_counter()
+    launches = {}
+    cfg = quickstart.shrunk_config()
+    _reset_all()
+    t0 = time.perf_counter()
+    losses = quickstart.run(cfg, steps=QUICKSTART_STEPS, batch=4, seq=128,
+                            accum_steps=2, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["quickstart"] = _expect_launches(
+        "train quickstart", _expect(cfg.n_layers, QUICKSTART_STEPS * 2))
+    first, last = quickstart.check_falls(losses)
+    log("train", run="quickstart", model=f"{cfg.name} shrunk",
+        n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+        dtype=cfg.dtype, steps=len(losses), loss_first=losses[0],
+        loss_last=losses[-1], first10_mean=first, last10_mean=last,
+        s_per_step=wall / len(losses), launches=launches["quickstart"])
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    t0 = time.perf_counter()
+    loss = train.main(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_loss("train", loss)
+    args = train.build_argparser().parse_args(TRAIN_ARGS)
+    main_cfg = get_config(args.arch)
+    if args.reduced:
+        main_cfg = main_cfg.reduced()
+    launches["driver"] = _expect_launches(
+        "train driver",
+        _expect(main_cfg.n_layers, args.steps * args.accum_steps))
+    log("train", run="launch.train.main", args=" ".join(TRAIN_ARGS),
+        loss=loss, wall_s_with_init=wall, launches=launches["driver"],
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------- #
+# phase 9: where a step's device time goes
 # ---------------------------------------------------------------------- #
 def _category(kernel: str) -> str:
     if any(k in kernel for k in SSD_KERNELS):
@@ -1488,7 +1866,7 @@ def phase_profile():
 
 
 # ---------------------------------------------------------------------- #
-# phase 8: the hybrid family through the executor
+# phase 10: the hybrid family through the executor
 # ---------------------------------------------------------------------- #
 def _expect_hybrid(cfg, micro: int) -> dict:
     # remat per unit: each micro-batch runs every unit's forward twice
@@ -1596,7 +1974,7 @@ def phase_hybrid(iters: int = 2):
 
 
 # ---------------------------------------------------------------------- #
-# phase 9: accumulated == full batch on the card
+# phase 11: accumulated == full batch on the card
 # ---------------------------------------------------------------------- #
 def phase_accum():
     import dataclasses
@@ -1636,7 +2014,7 @@ def phase_accum():
 
 
 # ---------------------------------------------------------------------- #
-# phase 10: serving through generate
+# phase 12: serving through generate
 # ---------------------------------------------------------------------- #
 def phase_serve():
     """minicpm-2b at full width, bf16: batch 4, 1024-token prompts, 64
@@ -1734,7 +2112,7 @@ def _profile_decode(cfg, params, prompt, steps: int = 8, phase="serve"):
 
 
 # ---------------------------------------------------------------------- #
-# phase 11: the continuous-batching engine
+# phase 13: the continuous-batching engine
 # ---------------------------------------------------------------------- #
 def _engine_requests(cfg):
     """16 prompts: a shared 1024-token system prefix plus 256-1024 tokens
@@ -1960,7 +2338,7 @@ def phase_engine():
 
 
 # ---------------------------------------------------------------------- #
-# phase 12: serving the hybrid at full depth
+# phase 14: serving the hybrid at full depth
 # ---------------------------------------------------------------------- #
 def _hybrid_requests(cfg):
     """16 prompts of 256-1024 tokens, 32-64 new tokens each, from one
@@ -2088,6 +2466,8 @@ def main() -> int:
     phase_pair()
     launches_calibrate = phase_calibrate()
     launches_replay = phase_replay()
+    launches_recovery = phase_recovery()
+    launches_train = phase_train()
     phase_profile()
     hybrid = phase_hybrid()
     launches.update(ssd_fwd=hybrid["ssd_fwd"], ssd_bwd=hybrid["ssd_bwd"])
@@ -2114,6 +2494,14 @@ def main() -> int:
             kernels[-1]["launches_calibrate"] = launches_calibrate[name]
             kernels[-1]["launches_replay"] = {
                 path: n[name] for path, n in launches_replay.items()}
+        # the recovery and training-driver paths' own counts
+        recovery = {path: n[name] for path, n in launches_recovery.items()
+                    if n.get(name)}
+        if recovery:
+            kernels[-1]["launches_recovery"] = recovery
+        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+            kernels[-1]["launches_train"] = {
+                path: n[name] for path, n in launches_train.items()}
         if name in SSD_PASSES:
             kernels[-1].update(
                 cuda_kernels=[f"ssd_{p}_kernel" for p in SSD_PASSES[name]],

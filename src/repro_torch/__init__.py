@@ -1,10 +1,16 @@
 """PyTorch/CUDA port of the ``repro`` execution layer for one NVIDIA H100.
 
 Mirrors ``repro``'s subpackage and function names so each counterpart is
-easy to find. This slice carries the paper's main path: co-scheduled,
-gradient-accumulated training of the dense and vlm families, with the
-flash-attention forward, dQ and dK/dV as hand-written CUDA kernels
-(``kernels/csrc/flash_attention.cu``).
+easy to find. It carries co-scheduled, gradient-accumulated training of
+the dense, vlm and hybrid families through the schedule executor, with
+its fault recovery (scripted faults, retry, member drop, npz checkpoints
+in the reference's format, restart) and the training driver
+(``launch.train``, ``launch.quickstart``); the calibration of (alpha,
+beta, xi) and the replay of a simulated SJF-BSBF schedule; and serving
+(prefill, decode, ``generate``, the continuous-batching
+``DecodeEngine``). Attention, decode and the Mamba2 SSD scan run on
+hand-written CUDA kernels (``kernels/csrc/``) when their tensors are on
+the card.
 
 The package imports neither ``jax`` nor anything from ``repro``; it keeps
 its own copy of whatever it needs. Entry points run on ``cuda`` unless the

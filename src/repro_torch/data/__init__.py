@@ -1,3 +1,3 @@
-from .synthetic import make_batch
+from .synthetic import SyntheticLM, make_batch
 
-__all__ = ["make_batch"]
+__all__ = ["SyntheticLM", "make_batch"]

@@ -10,6 +10,14 @@ on one device, and consumes a timeline of schedule events:
                  and optimizer state carry through untouched;
 * ``finish``   - the member leaves.
 
+Fault tolerance, as in the reference: a scripted fault injector is
+consulted before every group call; a transient fault is retried with
+bounded backoff (``util.retry``), a fatal fault or an exhausted retry
+drops the member while the survivors keep stepping; periodic checkpoints
+(``checkpoint.npz``) are snapshotted to the host synchronously and
+written by a background thread; :meth:`ScheduleExecutor.restart` resumes
+a failed job from its last checkpoint bit-exactly.
+
 PyTorch runs eagerly, so there is no compiled program to cache per group
 composition and no warm-up on zero states: ``core.coschedule`` warms up
 with one real step before it times. Walltimes bracket each group step
@@ -22,24 +30,91 @@ from the simulated rates, and the sharing groups as connected components
 of GPU co-tenancy), which :meth:`ScheduleExecutor.execute` runs,
 reporting measured per-job execution seconds beside the simulator's
 prediction (``launch.replay``).
-
-Fault injection, retry and checkpoints come in a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import queue
+import random
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import checkpoint as _ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data import make_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
-from repro_torch.train import TrainConfig, adamw_init, make_train_step
+from repro_torch.train import (OptState, TrainConfig, adamw_init,
+                               make_train_step)
+from repro_torch.tree import tree_map
+from repro_torch.util.retry import RetryPolicy, retry_call
+
+
+# ---------------------------------------------------------------------- #
+# Fault injection
+# ---------------------------------------------------------------------- #
+class TransientFault(RuntimeError):
+    """A recoverable step failure (an ECC blip, a flaky interconnect):
+    the executor retries the group call with backoff. Raised by fault
+    injectors *before* the call: the step updates params and moments in
+    place, so only a call that has not started can be replayed."""
+
+    def __init__(self, job: str, msg: str = "") -> None:
+        self.job = job
+        super().__init__(msg or f"transient fault on job {job!r}")
+
+
+class FatalFault(RuntimeError):
+    """An unrecoverable member failure (an OOM-killed worker, a dead
+    host): not retried. The member drops from its group, the survivors
+    keep stepping, and the job restarts later from its last
+    checkpoint."""
+
+    def __init__(self, job: str, msg: str = "") -> None:
+        self.job = job
+        super().__init__(msg or f"fatal fault on job {job!r}")
+
+
+@dataclass
+class FaultSpec:
+    """One scripted fault: fires when the executor's group-call counter
+    reaches ``call`` and ``job`` is a member of that call. ``times`` is
+    the number of consecutive attempts it poisons: a transient spec with
+    ``times < retry attempts`` is survived by the retry loop, one with
+    ``times >= attempts`` exhausts it (and escalates to a drop)."""
+
+    call: int
+    job: str
+    kind: str = "transient"     # "transient" | "fatal"
+    times: int = 1
+
+    def __post_init__(self) -> None:
+        if self.kind not in ("transient", "fatal"):
+            raise ValueError(f"unknown fault kind {self.kind!r}")
+
+
+class ScriptedFaults:
+    """Deterministic fault injector: a list of :class:`FaultSpec`
+    consulted before every group call (and by the decode engine before
+    every segment, as job ``"segment"``). The same script replays the
+    same failure sequence bit-exactly."""
+
+    def __init__(self, specs: Sequence[FaultSpec]) -> None:
+        self._remaining = [(s, [s.times]) for s in specs]
+
+    def check(self, call: int, names: Sequence[str]) -> None:
+        for spec, rem in self._remaining:
+            if spec.call == call and spec.job in names and rem[0] > 0:
+                rem[0] -= 1
+                if spec.kind == "fatal":
+                    raise FatalFault(spec.job)
+                raise TransientFault(spec.job)
 
 
 @dataclass
@@ -111,6 +186,10 @@ class JobRun:
     walltime: float = 0.0       # attributed execution seconds
     started: bool = False
     finished: bool = False
+    failed: bool = False        # dropped by a fault; restart() clears
+    restarts: int = 0
+    retries: int = 0            # transient faults absorbed by backoff
+    last_ckpt_step: int = -1    # steps_done at the last checkpoint
     reconfigs: List[Tuple[int, int]] = field(default_factory=list)
     last_metrics: Any = field(default=None, repr=False)
 
@@ -121,6 +200,9 @@ class JobRun:
             "sub_batch": self.sub_batch,
             "accum_steps": self.accum_steps,
             "reconfigs": list(self.reconfigs),
+            "failed": self.failed,
+            "restarts": self.restarts,
+            "retries": self.retries,
         }
         if self.last_metrics is not None:
             out["loss"] = float(self.last_metrics["loss"])
@@ -158,12 +240,55 @@ class SchedulePlan:
 
 class ScheduleExecutor:
     """Executes a schedule of N-way shared training groups on one device
-    (``cuda`` unless ``device="cpu"`` is passed)."""
+    (``cuda`` unless ``device="cpu"`` is passed).
 
-    def __init__(self, *, device=None) -> None:
+    Fault tolerance: ``fault_injector`` is consulted before every group
+    call; transient faults retry under ``retry_policy`` (jitter from
+    ``retry_seed``, waits through ``sleep``); a fatal fault or an
+    exhausted retry marks the member ``failed`` and drops it. With
+    ``checkpoint_dir``, every ``checkpoint_every`` steps a job's state is
+    written to ``<dir>/<name><checkpoint_tag>.npz``. At most
+    ``CKPT_SNAPSHOTS`` host snapshots (params, moments and step) exist at
+    once, one being written and the rest queued: a checkpoint beyond them
+    waits for the writer, so host memory stays under two copies of the
+    largest job's state however short ``checkpoint_every`` is.
+
+    The reference's ``donate``, ``rules`` and ``program_cache`` are left
+    out: the port updates state in place, runs eagerly and compiles no
+    program; sharding comes with the mesh."""
+
+    CKPT_SNAPSHOTS = 2
+
+    def __init__(self, *, device=None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 0,
+                 checkpoint_tag: str = "",
+                 fault_injector: Optional[ScriptedFaults] = None,
+                 retry_policy: Optional[RetryPolicy] = None,
+                 retry_seed: int = 0,
+                 sleep=time.sleep) -> None:
         self.device = resolve_device(device)
         self.runs: Dict[str, JobRun] = {}
+        self.calls = 0
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = int(checkpoint_every)
+        # lands between the job name and ".npz" (``job.e0003.npz``)
+        self.checkpoint_tag = checkpoint_tag
+        self.fault_injector = fault_injector
+        self.retry_policy = retry_policy or RetryPolicy()
+        self._retry_rng = random.Random(retry_seed)
+        self._sleep = sleep
+        self.retries_total = 0
+        self.drops_total = 0
+        self.checkpoints_written = 0
+        # (host snapshot s, background write s) of each written checkpoint
+        self.checkpoint_seconds: List[Tuple[float, float]] = []
+        self._ckpt_queue: Optional[queue.Queue] = None
+        self._ckpt_thread: Optional[threading.Thread] = None
+        self._ckpt_errors: List[BaseException] = []
+        self._ckpt_slots = threading.BoundedSemaphore(self.CKPT_SNAPSHOTS)
 
+    # -- job lifecycle ------------------------------------------------- #
     def submit(self, name: str, spec: JobSpec, steps: int) -> JobRun:
         if name in self.runs:
             raise ValueError(f"job {name!r} already submitted")
@@ -218,29 +343,200 @@ class ScheduleExecutor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- checkpoint / restart ------------------------------------------ #
+    def _ckpt_path(self, name: str) -> str:
+        assert self.checkpoint_dir is not None
+        return os.path.join(self.checkpoint_dir,
+                            f"{name}{self.checkpoint_tag}.npz")
+
+    def _ckpt_worker(self) -> None:
+        q = self._ckpt_queue
+        while True:
+            item = q.get()
+            if item is None:
+                q.task_done()
+                return
+            path, tree, snapshot_s = item
+            del item
+            try:
+                t0 = time.perf_counter()
+                _ckpt.save_pytree(path, tree)
+                self.checkpoint_seconds.append(
+                    (snapshot_s, time.perf_counter() - t0))
+                self.checkpoints_written += 1
+            except Exception as exc:       # surfaced at the next flush
+                self._ckpt_errors.append(exc)
+            finally:
+                del tree
+                self._ckpt_slots.release()
+                q.task_done()
+
+    def checkpoint(self, name: str) -> str:
+        """Snapshot ``name``'s params/opt/step to its checkpoint file.
+        The device->host copy is made here and has finished when this
+        returns: the next group step updates params and moments in place.
+        The npz write and its CRC run on a background thread, so training
+        does not wait on the disk; the write itself is atomic (tmp +
+        fsync + rename, ``checkpoint.npz``). When ``CKPT_SNAPSHOTS``
+        snapshots are already held, this waits until the writer has
+        finished one before it takes its own."""
+        if self.checkpoint_dir is None:
+            raise RuntimeError("executor has no checkpoint_dir")
+        run = self.runs[name]
+        if not run.started:
+            raise RuntimeError(f"job {name!r} not started")
+
+        def host(tree):
+            return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+        self._ckpt_slots.acquire()     # waits while the writer is behind
+        try:
+            t0 = time.perf_counter()
+            snap = {"params": host(run.params), "step": run.steps_done}
+            if run.opt is not None:
+                snap["opt"] = OptState(step=run.opt.step, m=host(run.opt.m),
+                                       v=host(run.opt.v))
+            snapshot_s = time.perf_counter() - t0
+        except BaseException:
+            self._ckpt_slots.release()
+            raise
+        if self._ckpt_queue is None:
+            self._ckpt_queue = queue.Queue()
+            self._ckpt_thread = threading.Thread(
+                target=self._ckpt_worker, daemon=True)
+            self._ckpt_thread.start()
+        path = self._ckpt_path(name)
+        self._ckpt_queue.put((path, snap, snapshot_s))
+        run.last_ckpt_step = run.steps_done
+        return path
+
+    def flush_checkpoints(self) -> None:
+        """Block until every queued checkpoint write has landed; re-raise
+        the first background write error, if any."""
+        if self._ckpt_queue is not None:
+            self._ckpt_queue.join()
+        if self._ckpt_errors:
+            raise self._ckpt_errors[0]
+
+    def close(self) -> None:
+        """Drain and join the background checkpoint writer (a flush
+        leaves it parked on its queue). Idempotent; re-raises the first
+        background write error like :meth:`flush_checkpoints`."""
+        q, t = self._ckpt_queue, self._ckpt_thread
+        self._ckpt_queue = None
+        self._ckpt_thread = None
+        if q is not None:
+            q.join()                 # all queued writes landed
+            q.put(None)              # stop sentinel
+            if t is not None:
+                t.join()
+        if self._ckpt_errors:
+            raise self._ckpt_errors[0]
+
+    def __enter__(self) -> "ScheduleExecutor":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        # don't mask an in-flight exception with a flush error
+        try:
+            self.close()
+        except Exception:
+            if exc_type is None:
+                raise
+
+    def restore_run(self, name: str, path: str) -> JobRun:
+        """Load params/opt/step from an explicit checkpoint file into a
+        started run, in place. CRC-verified by the checkpoint layer;
+        raises CheckpointError on bit-rot."""
+        run = self.runs[name]
+        if not run.started:
+            raise RuntimeError(f"job {name!r} not started")
+        run.params, run.opt, step = _ckpt.restore(
+            path, params_like=run.params, opt_like=run.opt)
+        run.steps_done = step
+        run.last_ckpt_step = step
+        return run
+
+    def restart(self, name: str) -> JobRun:
+        """Recover a failed (or stopped) job: pending checkpoint writes
+        are flushed, the failed run's tensors released, the state rebuilt
+        from the job's seed as :meth:`start` builds it, and params/opt/
+        step restored from the job's last checkpoint, or left fresh when
+        it never checkpointed. The batch is the job's fixed one, so a
+        restart replays the remaining steps bit-exactly."""
+        run = self.runs[name]
+        if not run.started:
+            raise RuntimeError(f"job {name!r} not started")
+        self.flush_checkpoints()
+        # old and new state would otherwise sit on the device together;
+        # the last metrics stay, so the report keeps its loss
+        run.params = run.opt = run.batch = None
+        params, opt, batch = _make_state(run.spec, self.device)
+        path = (self._ckpt_path(name)
+                if self.checkpoint_dir is not None else None)
+        if path is not None and os.path.exists(path):
+            params, opt, run.steps_done = _ckpt.restore(
+                path, params_like=params, opt_like=opt)
+        else:
+            run.steps_done = 0
+        run.params, run.opt, run.batch = params, opt, batch
+        run.failed = False
+        run.restarts += 1
+        return run
+
+    # -- execution ----------------------------------------------------- #
     def step_group(self, names: Sequence[str]) -> Dict[str, Any]:
         """One group call advancing every named job one step. Returns the
-        call's walltime and per-job losses."""
+        call's walltime and per-job losses.
+
+        Fault path: the injector (if any) is consulted *before* the
+        call, while no parameter has been touched. Transient faults retry
+        with bounded backoff; a fatal fault (or an exhausted retry
+        budget) marks the faulting member ``failed`` and returns
+        ``{"dropped": name}``: the caller drops it and keeps stepping the
+        survivors."""
         runs = [self.runs[n] for n in names]
         for r in runs:
-            if not r.started or r.finished:
+            if not r.started or r.finished or r.failed:
                 raise RuntimeError(f"job {r.name!r} not running")
         prog = make_group_step(
             [dataclasses.replace(r.spec, accum_steps=r.accum_steps)
              for r in runs])
-        args: List[Any] = []
-        for r in runs:
-            args += [r.params, r.opt, r.batch]
-        self._sync()
-        t0 = time.perf_counter()
-        out = prog(*args)
-        self._sync()
-        dt = time.perf_counter() - t0
+
+        def attempt():
+            if self.fault_injector is not None:
+                self.fault_injector.check(self.calls, names)
+            args: List[Any] = []
+            for r in runs:
+                args += [r.params, r.opt, r.batch]
+            self._sync()
+            t0 = time.perf_counter()
+            out = prog(*args)
+            self._sync()
+            return out, time.perf_counter() - t0
+
+        def note_retry(attempt_i, exc, delay):
+            self.retries_total += 1
+            self.runs[exc.job].retries += 1
+
+        try:
+            out, dt = retry_call(attempt, policy=self.retry_policy,
+                                 retry_on=(TransientFault,),
+                                 rng=self._retry_rng, sleep=self._sleep,
+                                 on_retry=note_retry)
+        except (TransientFault, FatalFault) as exc:
+            self.runs[exc.job].failed = True
+            self.drops_total += 1
+            return {"walltime": 0.0, "losses": {}, "dropped": exc.job}
         losses = {}
         for i, r in enumerate(runs):
             r.params, r.opt, r.last_metrics = out[3 * i:3 * i + 3]
             r.steps_done += 1
             losses[r.name] = float(r.last_metrics["loss"])
+            if (self.checkpoint_dir is not None and self.checkpoint_every
+                    and r.steps_done % self.checkpoint_every == 0):
+                self.checkpoint(r.name)
+        self.calls += 1
         return {"walltime": dt, "losses": losses}
 
     def _apply(self, op: PlanOp) -> None:
@@ -259,7 +555,8 @@ class ScheduleExecutor:
         report: measured execution seconds (each group phase's walltime
         attributed to every running member), steps, final sub-batch, and,
         when the plan carries simulator predictions, the
-        predicted-vs-measured error."""
+        predicted-vs-measured error. A member dropped by a fault leaves
+        its group (degraded mode); the survivors keep their quotas."""
         phases = plan.phases if isinstance(plan, SchedulePlan) else plan
         for phase in phases:
             for op in phase.ops:
@@ -267,18 +564,23 @@ class ScheduleExecutor:
             quotas = dict(phase.quotas)
             for group in phase.groups:
                 left = {n: quotas.get(n, 0) for n in group
-                        if quotas.get(n, 0) > 0}
+                        if quotas.get(n, 0) > 0 and not self.runs[n].failed}
                 t_group = 0.0
                 while left:
                     members = sorted(left)
-                    t_group += self.step_group(members)["walltime"]
+                    res = self.step_group(members)
+                    dropped = res.get("dropped")
+                    if dropped is not None:
+                        del left[dropped]
+                        continue
+                    t_group += res["walltime"]
                     for n in members:
                         left[n] -= 1
                         if left[n] == 0:
                             del left[n]
                 for n in group:
                     run = self.runs[n]
-                    if run.started and not run.finished:
+                    if run.started and not run.finished and not run.failed:
                         run.walltime += t_group
         report = {name: run.report() for name, run in self.runs.items()}
         if isinstance(plan, SchedulePlan):

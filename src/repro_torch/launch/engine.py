@@ -19,13 +19,15 @@ SSM states are per slot in both layouts: an idle slot's keep stepping,
 and an admission overwrites them with its own prefill's.
 
 The dense, vlm and hybrid families (the port's model); prefix sharing for
-dense and vlm only, as in the reference. The reference's fault injection
-and segment retry (``fault_injector``, ``retry_policy``) come with
-checkpoints and executor recovery in a later slice.
+dense and vlm only, as in the reference. Degraded mode as in the
+reference: per-request deadlines with timeout shedding, admission
+brown-out, and bounded retry of transient segment faults
+(``fault_injector``, ``retry_policy``), all off by default.
 """
 from __future__ import annotations
 
 import dataclasses
+import random
 import time
 from collections import deque
 from typing import Dict, List, Optional
@@ -33,12 +35,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch.cluster import ScriptedFaults, TransientFault
 from repro_torch.launch.prefix import PrefixTrie
 from repro_torch.launch.serve import (_device, _make_scan_generate,
                                       prefill_extend_cached)
 from repro_torch.models import init_cache, init_paged_cache, prefill
 from repro_torch.models.model import _require_ported
 from repro_torch.tree import flatten
+from repro_torch.util.retry import RetryPolicy, retry_call
 
 
 @dataclasses.dataclass
@@ -75,13 +79,21 @@ class DecodeEngine:
     at a query offset, so each attention row matches the miss's bits;
     decode takes the paged flash-decode kernel.
 
-    ``debug=True`` audits the paging invariants every segment."""
+    ``debug=True`` audits the paging invariants every segment.
+
+    ``fault_injector`` is consulted before every segment (as job
+    ``"segment"``, call = segments done); a :class:`TransientFault` is
+    retried under ``retry_policy`` and counted in ``stats["retries"]``,
+    and one that outlasts the policy propagates."""
 
     def __init__(self, cfg, params, *, n_slots: int = 4, max_len: int = 256,
                  segment: int = 8, paged: bool = False, page_size: int = 16,
                  n_pages: Optional[int] = None, prefix_share: bool = False,
                  retain_pages: Optional[int] = None, debug: bool = False,
-                 clock=time.monotonic, brownout_depth: int = 0):
+                 clock=time.monotonic, brownout_depth: int = 0,
+                 fault_injector: Optional[ScriptedFaults] = None,
+                 retry_policy: Optional[RetryPolicy] = None,
+                 retry_seed: int = 0, sleep=time.sleep):
         _require_ported(cfg, serving=True)
         if prefix_share:
             if not paged:
@@ -144,16 +156,21 @@ class DecodeEngine:
         self._next_rid = 0
         self._segment_fn = self._make_segment_fn()
         # degraded-mode serving: per-request deadlines with timeout
-        # shedding and admission brown-out under overload; off by default
+        # shedding, admission brown-out under overload, and bounded retry
+        # of transient segment faults; all off by default
         self._clock = clock
         self.brownout_depth = int(brownout_depth)
+        self.fault_injector = fault_injector
+        self.retry_policy = retry_policy or RetryPolicy()
+        self._retry_rng = random.Random(retry_seed)
+        self._sleep = sleep
         self.slot_deadline: List[Optional[float]] = [None] * n_slots
         self.shed: Dict[int, str] = {}            # rid -> shed reason
         self.retry_after: Dict[int, float] = {}   # rid -> backoff hint (s)
         self._seg_ewma = 0.0                      # EWMA segment walltime
         self.stats = {"segments": 0, "admitted": 0, "wasted_slot_steps": 0,
                       "peak_active_slots": 0, "shed_deadline": 0,
-                      "shed_brownout": 0, "deadline_miss": 0,
+                      "shed_brownout": 0, "deadline_miss": 0, "retries": 0,
                       "decode_seconds": 0.0}
         if paged:
             self.stats.update({
@@ -545,12 +562,27 @@ class DecodeEngine:
         if on_card:
             ev0, ev1 = (torch.cuda.Event(enable_timing=True)
                         for _ in range(2))
-            ev0.record()
-        t0 = time.perf_counter()
-        toks, self.cache, self.tok = self._segment_fn(self.params,
-                                                      self.cache, self.tok)
-        if on_card:
-            ev1.record()
+
+        def attempt():
+            # faults strike before the call, which has not touched the
+            # cache yet, so a retried segment replays the same work; only
+            # the attempt that runs records events
+            if self.fault_injector is not None:
+                self.fault_injector.check(self.stats["segments"],
+                                          ("segment",))
+            if on_card:
+                ev0.record()
+            t0 = time.perf_counter()
+            out = self._segment_fn(self.params, self.cache, self.tok)
+            if on_card:
+                ev1.record()
+            return out, t0
+
+        (toks, self.cache, self.tok), t0 = retry_call(
+            attempt, policy=self.retry_policy, retry_on=(TransientFault,),
+            rng=self._retry_rng, sleep=self._sleep,
+            on_retry=lambda *_: self.stats.__setitem__(
+                "retries", self.stats["retries"] + 1))
         toks = toks.cpu().numpy()            # the segment's one host sync
         dt = (ev0.elapsed_time(ev1) / 1e3 if on_card
               else time.perf_counter() - t0)

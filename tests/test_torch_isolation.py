@@ -26,7 +26,8 @@ for name in ("kernels.flash_attention", "kernels.flash_decode",
              "kernels.ssd", "models.ssm", "configs.zamba2_7b",
              "launch.serve", "launch.engine", "launch.prefix",
              "core.calibration", "core.simulator", "core.schedulers",
-             "launch.calibrate", "launch.replay"):
+             "launch.calibrate", "launch.replay", "checkpoint.npz",
+             "util.retry", "launch.train", "launch.quickstart"):
     assert "repro_torch." + name in names, name
 """
 

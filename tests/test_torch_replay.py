@@ -182,8 +182,7 @@ def test_replay_steps_and_reconfigs_follow_the_plan(replayed):
 def test_replay_report_has_the_reference_keys(replayed):
     _, _, _, report, _, out = replayed
     ref_keys = set(RefJobRun(name="x", spec=None, total_steps=1).report())
-    want = (ref_keys - {"failed", "restarts", "retries"}) | {
-        "loss", "predicted_exec", "measured_exec", "error"}
+    want = ref_keys | {"loss", "predicted_exec", "measured_exec", "error"}
     for rep in report.values():
         assert set(rep) == want
         assert math.isfinite(rep["error"]) and rep["measured_exec"] > 0
