@@ -15,8 +15,11 @@ serving (prefill, KV-cache decode and the continuous-batching
 ``DecodeEngine``) on the flash-attention forward and the two CUDA
 flash-decode kernels; and serving zamba2-7b at all 81 layers, its
 prefill on the SSD forward with a state in and out and the flash
-forward, its decode on the flash-decode kernels at head_dim 112. Phases,
-in order; each prints its own line and any failure exits non-zero:
+forward, its decode on the flash-decode kernels at head_dim 112; and the
+remaining dense families and MoE: stablelm-12b on the flash kernels at
+head_dim 160, glm4-9b decoding over a sliding window's ring buffer on the
+linear decode kernel, granite-moe-3b-a800m's MoE layers. Phases, in
+order; each prints its own line and any failure exits non-zero:
 
 1. build    - builds the three kernel libraries (flash attention, flash
               decode, SSD) from ``src/repro_torch/kernels/csrc``, one
@@ -42,7 +45,17 @@ in order; each prints its own line and any failure exits non-zero:
               (S 1024), at a ragged S and from bf16 inputs, against its
               plain version and an f64 evaluation; decode at head_dim
               112 (zamba2's shared block), linear and paged, f32 and
-              bf16, and a slot's row alone and among 8 slots; times
+              bf16, and a slot's row alone and among 8 slots; every
+              attention case of head_dim 112 also at 160
+              (stablelm-12b's layer shape timed, f32 and bf16 ragged,
+              non-causal, window, query offset; decode linear and
+              paged, f32 and bf16, timed, alone == among 8; the build
+              prints the D = 160 instances' registers and spills); the
+              ring case: glm4-9b's decode (B 3, 32 heads over 2, 128)
+              over a ring of 8192 rows, two slots past the window and
+              one partly filled (index 5000),
+              the linear kernel at lengths min(index + 1, 8192) against
+              the reference's ring mask, timed; times
               kernel, plain version
               and the PyTorch library call (SDPA, a yardstick the port
               never calls; none exists for the SSD scan), and the host's
@@ -124,6 +137,23 @@ in order; each prints its own line and any failure exits non-zero:
               paged == dense and engine == solo ``generate`` (required);
               then dense, paged and solo on a reduced zamba2 (18 layers)
               in f32, every token identity required.
+15. families - bf16, full width: (a) stablelm-12b at all 40 layers
+              through ``generate`` (batch 4, 1024-token prompts, 64
+              tokens, scan == eager; 40 flash forwards a prefill, 40
+              decodes a step) and a decode profile; (b) stablelm-12b at
+              8 of 40 layers through ``ScheduleExecutor`` (2 steps at
+              s = 4, a reconfig to s = 2, 1 step; exact launches of the
+              head_dim 160 kernels); (c) glm4-9b at all 40 layers with
+              the reference's long-context window of 8192, 2 prompts of
+              9216 tokens, 64 tokens, scan == eager, 8192 cache rows a
+              layer; (d) granite-moe-3b-a800m at all 32 layers, einsum
+              dispatch, through the executor as (b), a profiled step
+              with the MoE einsums' device time, ``generate`` (batch 4,
+              1024, 32 tokens) and a decode profile; (e) reduced f32:
+              a windowed glm4-9b (window 16) dense engine == solo;
+              granite-moe and llama4-maverick under the dense dispatch
+              (capacity factor 8): paged == dense, prefix-shared ==
+              private, engine == solo.
 
 Then the card's name and power limit, the ``kernels`` JSON line, and as
 the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -194,12 +224,12 @@ SSD_PASSES = {"ssd_fwd": ("fwd_state", "fwd_chunk"),
               "ssd_bwd": ("bwd_state", "bwd_chunk")}
 SSD_KERNELS = ("ssd_fwd_state_kernel", "ssd_fwd_chunk_kernel",
                "ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel")
-# the decode kernels' template instances: T f32 or bf16, D 64, 112 or 128,
-# G (query heads a block serves) 1 to 8
+# the decode kernels' template instances: T f32 or bf16, D 64, 112, 128
+# or 160, G (query heads a block serves) 1 to 8
 DECODE_INSTANCES = {
     name: [f"flash_decode_split_kernel<T, D, G, {paged}>",
            "flash_decode_merge_kernel<T, D>", "T in {float, __nv_bfloat16}",
-           "D in {64, 112, 128}", "G in 1..8"]
+           "D in {64, 112, 128, 160}", "G in 1..8"]
     for name, paged in (("flash_decode", "false"),
                         ("flash_decode_paged", "true"))}
 # the hybrid: zamba2-7b at full width, 36 of its 81 layers (4 of its 9
@@ -207,6 +237,9 @@ DECODE_INSTANCES = {
 HYBRID_LAYERS = 36
 # serving shapes
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, MAX_LEN = 4, 1024, 64, 4096
+# the reference's sliding window for full-attention archs at long context
+# (``configs/shapes.py``: LONG_CTX_WINDOW)
+LONG_WINDOW = 8192
 ENGINE_SLOTS, ENGINE_SEGMENT, ENGINE_REQUESTS, SYSTEM_PREFIX = 8, 16, 16, 1024
 
 
@@ -296,6 +329,9 @@ def phase_build():
             path=os.path.relpath(lib.path, ROOT), ptxas=ptxas,
             spills=[k["kernel"] for k in ptxas
                     if k.get("spill_stores") or k.get("spill_loads")])
+        d160 = [k for k in ptxas if "160" in k["kernel"]]
+        if d160:
+            log("build", library=name, head_dim=160, instances=d160)
     log("build", seconds=time.perf_counter() - t0)
 
 
@@ -655,6 +691,59 @@ def decode_invariance_case(label, h, h_kv, s, d, dtype, page_size=16):
     if not all(equal.values()):
         raise AssertionError(f"decode row depends on the batch in {label}: "
                              f"{equal}")
+
+
+def ring_case(label, b, h, h_kv, s, d, dtype, index, window):
+    """Decode over a sliding window's ring buffer of ``s`` rows: the linear
+    decode kernel with lengths min(index + 1, s), as the model's path
+    calls it, against the reference's ring-masked decode
+    (``ref.ring_decode_ref``, the mask of each row's absolute position),
+    within ``TOL``; timed, with its bound and SDPA under the ring mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    index = torch.as_tensor(index, device="cuda")
+    lengths = (index + 1).clamp_max(s)
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, s, h_kv, d), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    g = h // h_kv
+    krep, vrep = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+    fd.reset_launches()
+    out = fd.flash_decode(q, k, v, lengths)
+    want = ref.ring_decode_ref(q, krep, vrep, index, window)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    tol = TOL[dname]
+    err = _row_err(out, want)
+    pos = ref.ring_abs_pos(index, s)
+    valid = ((pos <= index[:, None]) & (pos > index[:, None] - window)
+             & (pos >= 0))
+    row = {"case": label, "ring": True, "shape": [b, h, h_kv, s, d],
+           "dtype": dname, "window": window, "index": index.tolist(),
+           "lengths": lengths.tolist(), "tol": tol, "row_rel_err": err,
+           "max_abs_err": _abs_err(out, want),
+           "ring_mask_is_the_prefix": bool(torch.equal(
+               valid, torch.arange(s, device="cuda")[None, :]
+               < lengths[:, None]))}
+    if not (err <= tol and row["ring_mask_is_the_prefix"]):
+        log("parity", **row)
+        raise AssertionError(f"ring decode disagrees in {label}: {row}")
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (krep, vrep))
+    mask = valid[:, None, None, :]
+    row["timing"] = {
+        "ms": cuda_time(lambda: fd.flash_decode(q, k, v, lengths), iters=20),
+        "plain_ms": cuda_time(lambda: ref.ring_decode_ref(
+            q, krep, vrep, index, window), iters=5),
+        "library_ms": cuda_time(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), iters=20),
+        **_decode_bound(lengths.tolist(), s, h, h_kv, d, dname)}
+    log("parity", **row)
+    return row
 
 
 def _ssd_inputs(shape, dtype, seed=0):
@@ -1027,14 +1116,6 @@ def phase_parity():
     rows.append(parity_case("zamba2-7b shared block", (1, 32, SEQ, 112),
                             bf16, True, 0, True))
     parity_case("ragged-f32 D=112", (1, 4, 1000, 112), f32, True, 0, False)
-    # flash_bwd_dq_mma_kernel enters dS = P (dP - delta) into dS K as one
-    # bf16 operand
-    log("parity", dq_ds_form="one bf16 operand", bf16_cases=len(rows),
-        dq_row_rel_err_max=max(r["row_rel_err"]["flash_bwd_dq"]
-                               for r in rows),
-        function_row_rel_err_max=max(r["row_rel_err"]["function"]
-                                     for r in rows),
-        tol=TOL["bfloat16"])
     ssd_main = ssd_case("zamba2-7b", (1, SEQ, 112, 64, 64), f32, True)
     ssd_case("ragged S, P 128, N 16", (2, 1000, 4, 128, 16), f32, False)
     ssd_case("zamba2-7b bf16 inputs", (1, SEQ, 112, 64, 64), bf16, False)
@@ -1056,6 +1137,48 @@ def phase_parity():
     decode_case("D=112 GQA 4:1 bf16", 3, 8, 2, 333, 112, bf16, [333, 1, 0],
                 False, page_size=32)
     decode_invariance_case("zamba2-7b", 32, 32, MAX_LEN, 112, bf16)
+    # stablelm-12b: 32 heads of 160 over 8 kv heads. Every attention case
+    # head_dim 112 has, at 160: its layer's shape (timed), a ragged S, no
+    # causal mask and a window in bf16 and f32, the query offset in both;
+    # decode linear and paged in both (timed), a slot's row alone and
+    # among 8 slots in both
+    d160 = parity_case("stablelm-12b", (1, 32, SEQ, 160), bf16, True, 0,
+                       True)
+    rows.append(d160)
+    for dt in (bf16, f32):
+        name = str(dt).replace("torch.", "")
+        for label, shape, causal, window in (
+                ("ragged", (1, 4, 1000, 160), True, 0),
+                ("noncausal", (2, 2, 320, 160), False, 0),
+                ("window", (1, 4, 1000, 160), True, 200)):
+            r = parity_case(f"{label}-{name} D=160", shape, dt, causal,
+                            window, False)
+            if dt == bf16:
+                rows.append(r)
+        suffix_case(f"ragged suffix {name} D=160", 2, 4, 1000, 333, 160, dt)
+    lens = rng.permutation([1, MAX_LEN] + rng.integers(
+        1, MAX_LEN + 1, 6).tolist()).tolist()
+    dec_s = decode_case("stablelm-12b decode", 8, 32, 8, MAX_LEN, 160, bf16,
+                        lens, True)
+    dec_s32 = decode_case("D=160 f32", 4, 32, 8, 1000, 160, f32,
+                          [0, 1000, 313, 1], True, page_size=32)
+    decode_invariance_case("stablelm-12b", 32, 8, MAX_LEN, 160, bf16)
+    decode_invariance_case("stablelm-12b f32", 32, 8, MAX_LEN, 160, f32)
+    # glm4-9b's windowed decode (window 8192 = its ring's rows, 32 heads
+    # over 2 kv heads of 128): two slots past the window, where every row
+    # is valid, and one whose ring is partly filled (index + 1 < 8192),
+    # where the reference's mask must keep just the prefix
+    ring = ring_case("glm4-9b ring", 3, 32, 2, LONG_WINDOW, 128, bf16,
+                     [LONG_WINDOW + 1024 + 63, 2 * LONG_WINDOW + 17, 5000],
+                     LONG_WINDOW)
+    # flash_bwd_dq_mma_kernel enters dS = P (dP - delta) into dS K as one
+    # bf16 operand
+    log("parity", dq_ds_form="one bf16 operand", bf16_cases=len(rows),
+        dq_row_rel_err_max=max(r["row_rel_err"]["flash_bwd_dq"]
+                               for r in rows),
+        function_row_rel_err_max=max(r["row_rel_err"]["function"]
+                                     for r in rows),
+        tol=TOL["bfloat16"])
     errs = dict(main["max_abs_err"], flash_decode=dec[0]["flash_decode"],
                 flash_decode_paged=dec_p[0]["flash_decode_paged"],
                 **ssd_main[0])
@@ -1065,6 +1188,16 @@ def phase_parity():
     for name in ("flash_decode", "flash_decode_paged"):
         timing[name]["at_d112"] = dict(dec_z[1][name],
                                        max_abs_err=dec_z[0][name])
+        timing[name]["at_d160"] = dict(dec_s[1][name],
+                                       max_abs_err=dec_s[0][name])
+        timing[name]["at_d160_f32"] = dict(dec_s32[1][name],
+                                           max_abs_err=dec_s32[0][name])
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        timing[name]["at_d160"] = dict(d160["timing"][name],
+                                       max_abs_err=d160["max_abs_err"][name])
+    timing["flash_decode"]["ring"] = dict(
+        ring["timing"], shape=ring["shape"], window=ring["window"],
+        max_abs_err=ring["max_abs_err"])
     timing["ssd_fwd"]["with_state_in_out"] = dict(
         ssd_prefill["timing"], shape=ssd_prefill["shape"],
         max_abs_err=max(ssd_prefill["max_abs_err"].values()))
@@ -1819,9 +1952,11 @@ def _category(kernel: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def _profile_step(phase: str, cfg):
+def _profile_step(phase: str, cfg, ops=()):
     """One profiled step of ``cfg`` at s = 4 after a warm-up step: device
-    time by kernel category and the device's busy share of the step."""
+    time by kernel category and the device's busy share of the step; and,
+    for each host op named in ``ops`` (exact profiler keys, e.g.
+    ``aten::einsum``), the device time of the kernels it launched."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1837,7 +1972,11 @@ def _profile_step(phase: str, cfg):
                              ProfilerActivity.CUDA]) as prof:
         res = ex.step_group([cfg.name])
     by_cat, top = {}, []
+    by_op = {op: 0.0 for op in ops}
     for e in prof.key_averages():
+        if e.key in by_op and e.device_type != DeviceType.CUDA:
+            by_op[e.key] += getattr(e, "device_time_total",
+                                    getattr(e, "cuda_time_total", 0)) / 1e3
         # kernels only: a host op also reports its kernels' time
         if e.device_type != DeviceType.CUDA:
             continue
@@ -1854,7 +1993,8 @@ def _profile_step(phase: str, cfg):
         busy_share=device_ms / wall_ms if device_ms else "not measured",
         by_category_ms=by_cat,
         top_kernels=[{"ms": t, "name": n, "calls": c}
-                     for t, n, c in top[:8]])
+                     for t, n, c in top[:8]],
+        **({"by_host_op_ms": by_op} if ops else {}))
     del ex
     torch.cuda.empty_cache()
 
@@ -2211,23 +2351,31 @@ def _cublas_rows(cfg, params, ms) -> dict:
     return out
 
 
-def _engine_small(name="qwen2-vl-2b", n_layers=None):
-    """The engines and solo ``generate`` on a reduced ``name`` in f32, on
-    the card: every token identity the CPU tests pin must hold here too.
-    Dense and paged engines for every family, and for dense and vlm also
-    the prefix-shared one: a 40-token shared prefix is 2.5 pages of 16,
-    so hits map two shared pages and fork the boundary page copy-on-write;
-    ``debug=True`` audits the paging invariants every segment."""
+def _engine_small(name="qwen2-vl-2b", n_layers=None, phase=None,
+                  **overrides):
+    """The engines and solo ``generate`` on a reduced ``name`` in f32
+    (with ``overrides`` of its config), on the card: every token identity
+    the CPU tests pin must hold here too. The dense engine for every
+    config, the paged one where the cache is linear (no sliding window),
+    and the prefix-shared one where the suffix prefill is bitwise (dense
+    and vlm, and moe under the dense dispatch): a 40-token shared prefix
+    is 2.5 pages of 16, so hits map two shared pages and fork the
+    boundary page copy-on-write; ``debug=True`` audits the paging
+    invariants every segment."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import init_params
-    cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32")
+    from repro_torch.models.model import has_linear_kv
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32",
+                              **overrides)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    share = cfg.family in ("dense", "vlm")
+    paged = has_linear_kv(cfg)
+    share = paged and (cfg.family in ("dense", "vlm") or (
+        cfg.family == "moe" and cfg.moe_dispatch == "dense"))
     params = init_params(cfg, 2)
     rng = np.random.default_rng(2)
     system = rng.integers(0, cfg.vocab, 40)
@@ -2235,7 +2383,9 @@ def _engine_small(name="qwen2-vl-2b", n_layers=None):
         0, cfg.vocab, int(rng.integers(3, 30)))]), int(rng.integers(8, 25)))
         for _ in range(8)]
     kw = dict(n_slots=4, max_len=128, segment=8)
-    ways = {"dense": {}, "paged": {"paged": True, "page_size": 16}}
+    ways = {"dense": {}}
+    if paged:
+        ways["paged"] = {"paged": True, "page_size": 16}
     if share:
         ways["prefix_shared"] = {"paged": True, "page_size": 16,
                                  "prefix_share": True, "debug": True}
@@ -2249,10 +2399,12 @@ def _engine_small(name="qwen2-vl-2b", n_layers=None):
                            max_new_tokens=n, max_len=128)[0].tolist()
             for p, n in reqs]
     row = {"config": f"{cfg.name}, {cfg.n_layers} layers, float32",
-           "requests": len(reqs),
-           "paged_vs_dense": _agreement(outs["paged"], outs["dense"]),
+           "overrides": overrides, "requests": len(reqs),
            "engine_vs_solo": _agreement(outs["dense"], solo)}
-    ok = outs["paged"] == outs["dense"] == solo
+    ok = outs["dense"] == solo
+    if paged:
+        row["paged_vs_dense"] = _agreement(outs["paged"], outs["dense"])
+        ok = ok and outs["paged"] == outs["dense"]
     if share:
         st = stats["prefix_shared"]
         row.update(prefix_hits=st["prefix_hits"], cow_forks=st["cow_forks"],
@@ -2260,8 +2412,8 @@ def _engine_small(name="qwen2-vl-2b", n_layers=None):
                        outs["prefix_shared"], outs["paged"]))
         ok = (ok and outs["prefix_shared"] == outs["paged"]
               and st["prefix_hits"] > 0 and st["cow_forks"] > 0)
-    log("hybrid_serve" if cfg.family == "hybrid" else "engine", small=True,
-        **row)
+    log(phase or ("hybrid_serve" if cfg.family == "hybrid" else "engine"),
+        small=True, **row)
     if not ok:
         raise AssertionError(f"engine (reduced, f32): identities fail "
                              f"{row}")
@@ -2448,6 +2600,202 @@ def phase_hybrid_serve():
     return paths
 
 
+# ---------------------------------------------------------------------- #
+# phase 15: the remaining dense families and MoE
+# ---------------------------------------------------------------------- #
+def _executor_steps(phase: str, job: str, cfg, schedule) -> dict:
+    """``cfg`` through ``ScheduleExecutor`` at B = 4, seq 2048, bf16:
+    ``schedule`` of (reconfigured sub-batch or None, steps) from sub-batch
+    1 (s = 4). Finite losses, flash launch counts exact (remat: two
+    forwards a layer and micro-batch); step times and peak memory."""
+    import torch
+    from repro_torch.launch.cluster import JobSpec, ScheduleExecutor
+    from repro_torch.models import param_count
+    ex = ScheduleExecutor()
+    ex.submit(job, JobSpec(cfg, batch=BATCH, seq=SEQ, seed=0),
+              steps=sum(n for _, n in schedule))
+    ex.start(job, sub_batch=1)
+    log(phase, job=job, config=cfg.name, family=cfg.family,
+        n_layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+        kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        params=param_count(ex.runs[job].params), dtype=cfg.dtype,
+        moe_dispatch=cfg.moe_dispatch if cfg.family == "moe" else None,
+        seq=SEQ, batch=BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    micro = 0
+    for sub, n in schedule:
+        if sub is not None:
+            ex.reconfigure(job, sub)
+        run = ex.runs[job]
+        for _ in range(n):
+            res = ex.step_group([job])
+            loss = res["losses"][job]
+            _check_loss(phase, loss)
+            micro += run.accum_steps
+            log(phase, job=job, step=run.steps_done, sub_batch=run.sub_batch,
+                accum_steps=run.accum_steps, loss=loss,
+                walltime_s=res["walltime"])
+    ex.finish(job)
+    launches = _expect_launches(f"{phase} {job}", _expect(cfg.n_layers,
+                                                          micro))
+    log(phase, job=job, summary=True, micro_batches=micro,
+        launches=launches,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del ex, run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _generate_run(phase: str, cfg, params, prompt, max_len: int, new: int,
+                  cache_rows=None) -> dict:
+    """``generate`` at full width: the prefill alone (its time, its
+    launches and, where ``cache_rows`` is given, the rows its cache holds
+    a layer), then ``engine="scan"`` and ``"eager"`` with equal tokens and
+    exact launches (one flash forward a layer for the prefill, one flash
+    decode a layer and step): prefill ms, ms a decode step, tokens/s and
+    peak memory."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache
+    from repro_torch.tree import flatten
+    b, plen = prompt.shape
+    serve.generate(cfg, params, prompt[:, :64], max_new_tokens=2,
+                   max_len=128)                       # warm-up
+    cache = init_cache(cfg, b, max_len)
+    rows = {k: t.shape[2] for k, t in flatten(cache["units"]).items()}
+    if cache_rows is not None and set(rows.values()) != {cache_rows}:
+        raise AssertionError(f"{phase}: {cfg.name} cache rows {rows}, "
+                             f"expected {cache_rows}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    t0 = time.perf_counter()
+    serve.prefill_one_shot(cfg, params, prompt.cuda(), cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = _expect_launches(f"{phase} {cfg.name} prefill",
+                                        {"flash_fwd": cfg.n_layers})
+    log(phase, model=cfg.name, prefill=True, batch=b, prompt=plen,
+        cache_rows_per_layer=sorted(set(rows.values())),
+        prefill_ms=prefill_ms, launches=prefill_launches,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del cache
+    torch.cuda.empty_cache()
+    expect = {"flash_fwd": cfg.n_layers, "flash_decode": cfg.n_layers * new}
+    toks, launches = {}, {}
+    for engine in ("scan", "eager"):
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks[engine] = serve.generate(cfg, params, prompt, engine=engine,
+                                      max_new_tokens=new, max_len=max_len)
+        wall = time.perf_counter() - t0
+        launches[engine] = _expect_launches(f"{phase} {cfg.name} {engine}",
+                                            expect)
+        decode_s = wall - prefill_ms / 1e3
+        log(phase, model=cfg.name, engine=engine, batch=b, prompt=plen,
+            new_tokens=new, max_len=max_len, wall_s=wall,
+            prefill_ms=prefill_ms, ms_per_decode_step=decode_s * 1e3 / new,
+            decode_tokens_per_s=b * new / decode_s,
+            launches=launches[engine],
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if not torch.equal(toks["scan"], toks["eager"]):
+        raise AssertionError(f"{phase}: {cfg.name} scan and eager tokens "
+                             f"differ")
+    if tuple(toks["scan"].shape) != (b, new) or int(
+            toks["scan"].min()) < 0 or int(toks["scan"].max()) >= cfg.vocab:
+        raise AssertionError(f"{phase}: {cfg.name} bad tokens "
+                             f"{toks['scan']}")
+    log(phase, model=cfg.name, tokens_equal=True,
+        first_tokens=toks["scan"][0, :8].tolist())
+    return launches["scan"]
+
+
+STABLELM_TRAIN_LAYERS = 8
+MOE_NEW = 32
+
+
+def phase_families():
+    """The remaining dense families and MoE at full published width, bf16:
+    (a) stablelm-12b at all 40 layers (head_dim 160) through
+    ``generate``; (b) stablelm-12b at 8 of 40 layers through
+    ``ScheduleExecutor`` (the head_dim 160 backward on the model's path);
+    (c) glm4-9b at all 40 layers with the reference's long-context
+    sliding window of 8192, prompts past it by 1024, through ``generate``
+    (a ring buffer of 8192 rows a layer); (d) granite-moe-3b-a800m at all
+    32 layers, einsum dispatch, through ``ScheduleExecutor``, a profiled
+    step with the MoE einsums' device time, and ``generate``; (e) reduced
+    f32 configs through the engines, every token identity required: a
+    windowed glm4-9b (window 16) dense == solo; granite-moe and
+    llama4-maverick under the dense dispatch (capacity factor 8, the
+    reference's test override) paged == dense, prefix-shared == private,
+    engine == solo."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_count
+    t_phase = time.perf_counter()
+    paths = {}
+    rng = np.random.default_rng(6)
+
+    cfg = get_config("stablelm-12b")
+    params = init_params(cfg, 5)
+    log("families", config=cfg.name, n_layers=cfg.n_layers,
+        head_dim=cfg.head_dim, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        params=param_count(params), dtype=cfg.dtype, reduced="nothing")
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (SERVE_BATCH, SERVE_PROMPT)))
+    paths["stablelm-12b generate"] = _generate_run(
+        "families", cfg, params, prompt, MAX_LEN, SERVE_NEW)
+    _profile_decode(cfg, params, prompt, phase="families")
+    del params
+    torch.cuda.empty_cache()
+    paths["stablelm-12b@8 executor"] = _executor_steps(
+        "families", "stablelm", dataclasses.replace(
+            cfg, n_layers=STABLELM_TRAIN_LAYERS), ((None, 2), (2, 1)))
+
+    cfg = dataclasses.replace(get_config("glm4-9b"),
+                              sliding_window=LONG_WINDOW)
+    params = init_params(cfg, 6)
+    log("families", config=cfg.name, n_layers=cfg.n_layers,
+        sliding_window=cfg.sliding_window, heads=cfg.n_heads,
+        kv_heads=cfg.n_kv_heads, qkv_bias=cfg.qkv_bias,
+        params=param_count(params), dtype=cfg.dtype,
+        reduced="nothing; the window is the reference's long-context "
+                "variant (configs/shapes.py: variant_for_shape)")
+    plen = LONG_WINDOW + 1024
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (2, plen)))
+    paths["glm4-9b window generate"] = _generate_run(
+        "families", cfg, params, prompt, plen + SERVE_NEW, SERVE_NEW,
+        cache_rows=LONG_WINDOW)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("granite-moe-3b-a800m")
+    paths["granite-moe executor"] = _executor_steps(
+        "families", "granite", cfg, ((None, 2), (2, 1)))
+    _profile_step("families", cfg, ops=("aten::einsum", "BmmBackward0"))
+    params = init_params(cfg, 7)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (SERVE_BATCH, SERVE_PROMPT)))
+    paths["granite-moe generate"] = _generate_run(
+        "families", cfg, params, prompt, MAX_LEN, MOE_NEW)
+    _profile_decode(cfg, params, prompt, phase="families")
+    del params
+    torch.cuda.empty_cache()
+
+    _engine_small("glm4-9b", phase="families", sliding_window=16)
+    for name in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b"):
+        _engine_small(name, phase="families", moe_dispatch="dense",
+                      moe_capacity_factor=8.0)
+    log("families", seconds=time.perf_counter() - t_phase)
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2475,6 +2823,16 @@ def main() -> int:
     launches["flash_decode"] = phase_serve()["flash_decode"]
     launches["flash_decode_paged"] = phase_engine()["flash_decode_paged"]
     serve_paths = phase_hybrid_serve()
+    family_paths = phase_families()
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd
+    # the head dims each kernel's wrapper takes (for the SSD: its head
+    # width P)
+    head_dims = {"flash_fwd": fa.HEAD_DIMS, "flash_bwd_dq": fa.HEAD_DIMS,
+                 "flash_bwd_dkdv": fa.HEAD_DIMS, "flash_decode": fd.HEAD_DIMS,
+                 "flash_decode_paged": fd.HEAD_DIMS, "ssd_fwd": ssd.HEAD_DIMS,
+                 "ssd_bwd": ssd.HEAD_DIMS}
     kernels = []
     for name in REPLACES:
         t = timing[name]
@@ -2506,9 +2864,16 @@ def main() -> int:
             kernels[-1].update(
                 cuda_kernels=[f"ssd_{p}_kernel" for p in SSD_PASSES[name]],
                 bound_3xtf32_ms=t["bound_3xtf32_ms"], passes=t["passes"])
+        # the families phase's paths' own counts
+        families = {path: n[name] for path, n in family_paths.items()
+                    if n.get(name)}
+        if families:
+            kernels[-1]["launches_families"] = families
+        kernels[-1]["head_dims"] = list(head_dims[name])
         if name in DECODE_INSTANCES:
             kernels[-1]["instantiations"] = DECODE_INSTANCES[name]
-        for key in ("at_d112", "with_state_in_out"):
+        for key in ("at_d112", "at_d160", "at_d160_f32", "ring",
+                    "with_state_in_out"):
             if key in t:
                 kernels[-1][key] = t[key]
     log("done", seconds=time.perf_counter() - t0)

@@ -2,8 +2,8 @@
 
 The fields and ``reduced()`` match the reference field for field, so a
 reduced config here has the same shapes as the reference's reduced config.
-``get_config`` knows only the architectures the port runs so far (dense,
-vlm and hybrid); the others raise and name the slice that brings them.
+``get_config`` knows the architectures the port runs so far (dense, vlm,
+hybrid and moe); the others raise and name the slice that brings them.
 """
 from __future__ import annotations
 
@@ -134,19 +134,19 @@ class ArchConfig:
 
 
 _REGISTRY: Dict[str, str] = {
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe",
+    "llama3-405b": "repro_torch.configs.llama3_405b",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 # architectures of the reference that later slices of the port bring
 _LATER: Dict[str, str] = {
-    "glm4-9b": "the remaining-families slice",
-    "llama4-maverick-400b-a17b": "the remaining-families slice",
     "xlstm-1.3b": "the remaining-families slice",
-    "granite-moe-3b-a800m": "the remaining-families slice",
-    "stablelm-12b": "the remaining-families slice",
-    "llama3-405b": "the remaining-families slice",
     "whisper-tiny": "the remaining-families slice",
 }
 

@@ -18,7 +18,7 @@ def make_batch(cfg: ArchConfig, batch: int, seq: int, *, step: int = 0,
                device=None) -> Dict[str, torch.Tensor]:
     """One training batch: tokens (B,S) int64, labels = next token, and
     ``vision_embeds`` (B, vision_tokens, d_model) for the vlm family
-    (dense and hybrid take tokens only).
+    (dense, moe and hybrid take tokens only).
 
     ``structured=True`` draws deterministic affine sequences
     t_{i+1} = (a*t_i + b) mod V: i.i.d. uniform tokens have an
@@ -26,7 +26,7 @@ def make_batch(cfg: ArchConfig, batch: int, seq: int, *, step: int = 0,
     quickstart) needs learnable structure."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
-    if cfg.family not in ("dense", "vlm", "hybrid"):
+    if cfg.family not in ("dense", "vlm", "hybrid", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet")
     rng = np.random.default_rng(seed * 1_000_003 + step)

@@ -8,7 +8,7 @@
 //   flash_bwd_dkdv_mma_kernel (bf16), flash_bwd_dkdv_kernel (f32)
 //       <- _flash_bwd_dkdv_kernel (second pallas_call in flash_attention_bwd)
 //
-// What bounds them. At the training shapes (S = 2048, D = 64, 112 or 128) each
+// What bounds them. At the training shapes (S = 2048, D = 64 to 160) each
 // kernel does O(S^2 D) arithmetic on O(S D) bytes: hundreds of operations
 // per byte, far above the H100's ~295 bf16 operations per byte of device
 // memory, so the bound is arithmetic: the tensor cores' 989 TFLOP/s in bf16,
@@ -40,7 +40,15 @@
 // divide). Every sum is f32. dQ and dK/dV round dS (dS^T, P^T) to bf16 as
 // one operand, as FlashAttention-2 does; the forward enters P as bf16 hi + lo, two products, because the O
 // it writes feeds the backward's delta = rowsum(dO O), where dP - delta
-// cancels.
+// cancels. Above D = 128 (stablelm-12b's D = 160) a warp's dK and dV
+// accumulators alone would take 160 f32 registers a thread beside the 64
+// of S^T and dP^T, past the 255 a thread has: dK/dV then runs as two
+// passes over the same q tiles, one kernel launch each, dV = P^T dO first
+// (no dP^T), then dK = dS^T Q. Each pass computes S^T = K Q^T, so the two
+// do five products a tile where one pass does four; they also read Q, dO,
+// lse and delta twice. Built at D = 160, the one-pass form takes 255
+// registers and spills (112 bytes stored, 80 loaded); flash_variants.py
+// times it against the two passes.
 //
 // f32 (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkdv_kernel): the
 // first, simple design. Each block keeps its q (or kv) tile and the
@@ -762,8 +770,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // P^T and dP^T stay in f32 registers beside the dK and dV accumulators:
-// at D = 128 that is 255 registers a thread and no spills (-Xptxas -v)
-template <int D>
+// at D = 128 that is 255 registers a thread and no spills (-Xptxas -v).
+// PASS 0 computes dK and dV together; above D = 128 the host runs PASS 1
+// (dV alone: no dP^T, no dK accumulator) then PASS 2 (dK alone).
+template <int D, int PASS>
 __global__ void __launch_bounds__(NTH)
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -771,6 +781,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           bf16* __restrict__ dk, bf16* __restrict__ dv, int s, int causal,
                           int window, float scale) {
   constexpr int LD = D + 8, KD = D / 16, ND = D / 8, T = 64 * LD, NQ = BQ / 8;
+  constexpr bool DO_V = PASS != 2, DO_K = PASS != 1;
   extern __shared__ __align__(16) unsigned char smem_dkdv[];
   bf16* sK = reinterpret_cast<bf16*>(smem_dkdv);
   bf16* sV = sK + T;
@@ -842,16 +853,18 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     for (int ks = 0; ks < KD; ++ks) {
       uint32_t ak[4], av[4];
       frag_a<LD>(ak, sK, wr, ks * 16);
-      frag_a<LD>(av, sV, wr, ks * 16);
+      if constexpr (DO_K) frag_a<LD>(av, sV, wr, ks * 16);
 #pragma unroll
       for (int np = 0; np < NQ / 2; ++np) {
         uint32_t b[4];
         frag_b<LD>(b, tQ, np * 16, ks * 16);
         mma(st[2 * np], ak, b[0], b[1]);
         mma(st[2 * np + 1], ak, b[2], b[3]);
-        frag_b<LD>(b, tO, np * 16, ks * 16);
-        mma(dp[2 * np], av, b[0], b[1]);
-        mma(dp[2 * np + 1], av, b[2], b[3]);
+        if constexpr (DO_K) {
+          frag_b<LD>(b, tO, np * 16, ks * 16);
+          mma(dp[2 * np], av, b[0], b[1]);
+          mma(dp[2 * np + 1], av, b[2], b[3]);
+        }
       }
     }
     // P^T = exp(scale S^T - lse), dS^T = P^T (dP^T - delta), per q column
@@ -866,7 +879,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
           float p = exp2f(fmaf(st[n][2 * h + e], sl2, -l2));
           if (edge && !(qp < s && mask.ok(qp, k0 + wr + g + 8 * h))) p = 0.f;
           st[n][2 * h + e] = p;
-          dp[n][2 * h + e] = p * (dp[n][2 * h + e] - de);
+          if constexpr (DO_K) dp[n][2 * h + e] = p * (dp[n][2 * h + e] - de);
         }
       }
     // dV += P^T dO and dK += dS^T Q, P^T and dS^T as bf16 A fragments
@@ -883,12 +896,16 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
       for (int dq = 0; dq < KD; ++dq) {
         uint32_t b[4];
-        frag_bt<LD>(b, tO, kk * 16, dq * 16);
-        mma(dva[2 * dq], pa, b[0], b[1]);
-        mma(dva[2 * dq + 1], pa, b[2], b[3]);
-        frag_bt<LD>(b, tQ, kk * 16, dq * 16);
-        mma(dka[2 * dq], sa, b[0], b[1]);
-        mma(dka[2 * dq + 1], sa, b[2], b[3]);
+        if constexpr (DO_V) {
+          frag_bt<LD>(b, tO, kk * 16, dq * 16);
+          mma(dva[2 * dq], pa, b[0], b[1]);
+          mma(dva[2 * dq + 1], pa, b[2], b[3]);
+        }
+        if constexpr (DO_K) {
+          frag_bt<LD>(b, tQ, kk * 16, dq * 16);
+          mma(dka[2 * dq], sa, b[0], b[1]);
+          mma(dka[2 * dq + 1], sa, b[2], b[3]);
+        }
       }
     }
   }
@@ -902,10 +919,12 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
         const int c = n * 8 + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(dk + row + c) =
-            __floats2bfloat162_rn(dka[n][2 * h] * scale, dka[n][2 * h + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + row + c) =
-            __floats2bfloat162_rn(dva[n][2 * h], dva[n][2 * h + 1]);
+        if constexpr (DO_K)
+          *reinterpret_cast<__nv_bfloat162*>(dk + row + c) =
+              __floats2bfloat162_rn(dka[n][2 * h] * scale, dka[n][2 * h + 1] * scale);
+        if constexpr (DO_V)
+          *reinterpret_cast<__nv_bfloat162*>(dv + row + c) =
+              __floats2bfloat162_rn(dva[n][2 * h], dva[n][2 * h + 1]);
       }
     }
   }
@@ -1083,19 +1102,36 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const 
   return (int)cudaGetLastError();
 }
 
+template <int D, int PASS>
+int bwd_dkdv_pass(const void* q, const void* k, const void* v, const void* dout,
+                  const float* lse, const float* delta, void* dk, void* dv, int bh, int s,
+                  int causal, int window, float scale, cudaStream_t st) {
+  const size_t smem = dkdv_smem(D);
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<D, PASS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((s + BK - 1) / BK, bh);
+  flash_bwd_dkdv_mma_kernel<D, PASS><<<grid, NTH, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dk,
+      (bf16*)dv, s, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+// one pass up to D = 128; above it dV, then dK (see the kernel)
 template <int D>
 int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
              const float* delta, void* dk, void* dv, int bh, int s, int causal, int window,
              float scale, cudaStream_t st) {
-  const size_t smem = dkdv_smem(D);
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((s + BK - 1) / BK, bh);
-  flash_bwd_dkdv_mma_kernel<D><<<grid, NTH, smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dk,
-      (bf16*)dv, s, causal, window, scale);
-  return (int)cudaGetLastError();
+  if constexpr (D <= 128) {
+    return bwd_dkdv_pass<D, 0>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, window, scale,
+                               st);
+  } else {
+    const int e = bwd_dkdv_pass<D, 1>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, window,
+                                      scale, st);
+    if (e != 0) return e;
+    return bwd_dkdv_pass<D, 2>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, window, scale,
+                               st);
+  }
 }
 
 }  // namespace tc
@@ -1163,8 +1199,8 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, cons
 }  // namespace
 
 // dtype: 0 = float32 (the scalar kernels), 1 = bfloat16 (the tensor-core
-// kernels). head_dim: 64, 112 (zamba2's shared
-// block) or 128; both designs step over D by 16 (the scalar kernels' NJ =
+// kernels). head_dim: 64, 112 (zamba2's shared block), 128 or 160
+// (stablelm-12b); both designs step over D by 16 (the scalar kernels' NJ =
 // D / 16 columns a thread, the tensor cores' k-steps and n-tile pairs), so
 // D only has to be a multiple of 16. Anything else returns
 // cudaErrorInvalidValue without launching. The tensor-core kernels copy
@@ -1174,9 +1210,11 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, cons
   if (dtype == 0 && d == 64) return FN<float, 64>(__VA_ARGS__);            \
   if (dtype == 0 && d == 112) return FN<float, 112>(__VA_ARGS__);          \
   if (dtype == 0 && d == 128) return FN<float, 128>(__VA_ARGS__);          \
+  if (dtype == 0 && d == 160) return FN<float, 160>(__VA_ARGS__);          \
   if (dtype == 1 && d == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);    \
   if (dtype == 1 && d == 112) return FN<__nv_bfloat16, 112>(__VA_ARGS__);  \
   if (dtype == 1 && d == 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__);  \
+  if (dtype == 1 && d == 160) return FN<__nv_bfloat16, 160>(__VA_ARGS__);  \
   return (int)cudaErrorInvalidValue;
 
 extern "C" {

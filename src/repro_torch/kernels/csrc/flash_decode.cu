@@ -15,7 +15,11 @@
 // D * sizeof(T) / 16 lanes, rounded up to a power of two (a "sub-warp"),
 // covers one row, and each sub-warp has four K rows and four V rows in
 // flight per step. At D = 112 a sub-warp's last lanes (4 of 32 in f32,
-// 2 of 16 in bf16) hold no channel and sit out the loads.
+// 2 of 16 in bf16) hold no channel and sit out the loads. A row wider than
+// 32 such loads (f32 at D = 160: 40) takes two 16-byte loads a lane, 32
+// contiguous bytes, and then two K and two V rows in flight per step, so
+// a lane holds as many bytes as elsewhere; 20 of a warp's 32 lanes then
+// hold channels, as in bf16 at D = 160.
 //
 // Layout. q and o are (B, 1, H, D) (the model's layout); the linear cache is
 // (B, S, H_kv, D) and the paged pools are (N, page_size, H_kv, D) with a
@@ -66,26 +70,30 @@ namespace {
 
 constexpr int NW = 8;          // warps per block
 constexpr int NT = NW * 32;    // threads per block
-constexpr int U = 4;           // keys in flight per sub-warp and step
 constexpr int SPLIT = 256;     // key positions per split
 
 constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
 
-// A row of D elements takes D / EPL lanes of 16 bytes; a sub-warp is that
-// rounded up to a power of two, so it divides the warp. At D = 112 the
-// last lanes of a sub-warp hold no channel (f32: 28 of 32 lanes live,
-// bf16: 14 of 16): they load nothing and add 0 to every sum.
+// A row of D elements takes D / EPL lanes, each NV loads of 16 bytes (NV
+// is 1 unless a row is wider than 32 loads); a sub-warp is that rounded up
+// to a power of two, so it divides the warp. At D = 112 and 160 the last
+// lanes of a sub-warp hold no channel (f32 D = 112: 28 of 32 lanes live,
+// bf16 D = 112: 14 of 16, D = 160: 20 of 32): they load nothing and add 0
+// to every sum.
 template <typename T, int D>
 struct Geo {
-  static constexpr int EPL = 16 / sizeof(T);   // elements per lane: 16 bytes
+  static constexpr int EPV = 16 / sizeof(T);   // elements per 16-byte load
+  static constexpr int NV = (D / EPV + 31) / 32;  // loads a lane takes of a row
+  static constexpr int EPL = NV * EPV;         // elements per lane
   static constexpr int LPK = pow2_at_least(D / EPL);  // lanes per key row
   static constexpr int KPW = 32 / LPK;         // key rows per warp and step
   static constexpr int NSUB = NW * KPW;        // sub-warps per block
+  static constexpr int U = 4 / NV;             // keys in flight per sub-warp and step
   static constexpr bool FULL_ROW = LPK * EPL == D;  // every lane holds channels
-  static_assert(D % EPL == 0 && LPK <= 32, "unsupported head_dim");
+  static_assert(D % EPL == 0 && LPK <= 32 && U >= 1, "unsupported head_dim");
 };
 
-// 16 bytes of a row -> EPL floats
+// 16 bytes of a row -> EPV floats
 __device__ __forceinline__ void unpack(const uint4& raw, float* out, const float*) {
   out[0] = __uint_as_float(raw.x);
   out[1] = __uint_as_float(raw.y);
@@ -101,6 +109,13 @@ __device__ __forceinline__ void unpack(const uint4& raw, float* out, const __nv_
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+// a lane's NV loads of a row -> its NV * EPV floats
+template <int NV, typename T>
+__device__ __forceinline__ void unpack_all(const uint4 (&raw)[NV], float* out, const T* tag) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) unpack(raw[i], out + i * (16 / (int)sizeof(T)), tag);
 }
 
 __device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
@@ -147,7 +162,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           float* __restrict__ part_ml, int h, int h_kv, int rows, int p_tab,
                           int n_split, float scale) {
   using G = Geo<T, D>;
-  constexpr int EPL = G::EPL, LPK = G::LPK, KPW = G::KPW, NSUB = G::NSUB;
+  constexpr int NV = G::NV, EPL = G::EPL, LPK = G::LPK, KPW = G::KPW;
+  constexpr int NSUB = G::NSUB, U = G::U;
   __shared__ float sm_acc[NW][GM][D];
   __shared__ float sm_m[NW][GM], sm_l[NW][GM];
   __shared__ int sm_tab[SPLIT];
@@ -185,7 +201,11 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < GM; ++j) {
     if (j < gn && live) {
-      unpack(*reinterpret_cast<const uint4*>(q + ((size_t)b * h + h0 + j) * D + c0), qf[j], q);
+      uint4 raw[NV];
+      const uint4* src = reinterpret_cast<const uint4*>(q + ((size_t)b * h + h0 + j) * D + c0);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) raw[i] = src[i];
+      unpack_all(raw, qf[j], q);
     } else {
 #pragma unroll
       for (int e = 0; e < EPL; ++e) qf[j][e] = 0.f;
@@ -206,26 +226,29 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the loop bound is the same for every lane of a warp, so the shuffles
   // below always run converged; a sub-warp past the end masks its keys
   for (int it = k0 + warp * KPW; it < k1; it += NSUB * U) {
-    uint4 kraw[U], vraw[U];
+    uint4 kraw[U][NV], vraw[U][NV];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int pos = it + sub + u * NSUB;
       const long long off = pos < k1 ? cache.at(pos) : -1;
       ok[u] = off >= 0;
-      if (ok[u] && live) {
-        kraw[u] = *reinterpret_cast<const uint4*>(kb + off);
-        vraw[u] = *reinterpret_cast<const uint4*>(vb + off);
-      } else {
-        kraw[u] = make_uint4(0, 0, 0, 0);
-        vraw[u] = make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        if (ok[u] && live) {
+          kraw[u][i] = reinterpret_cast<const uint4*>(kb + off)[i];
+          vraw[u][i] = reinterpret_cast<const uint4*>(vb + off)[i];
+        } else {
+          kraw[u][i] = make_uint4(0, 0, 0, 0);
+          vraw[u][i] = make_uint4(0, 0, 0, 0);
+        }
       }
     }
     float s[U][GM];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kf[EPL];
-      unpack(kraw[u], kf, q);
+      unpack_all(kraw[u], kf, q);
 #pragma unroll
       for (int j = 0; j < GM; ++j) {
         float part = 0.f;
@@ -252,7 +275,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float vf[EPL];
-      unpack(vraw[u], vf, q);
+      unpack_all(vraw[u], vf, q);
 #pragma unroll
       for (int j = 0; j < GM; ++j) {
         const float p = ok[u] ? expf(s[u][j] - m[j]) : 0.f;
@@ -410,16 +433,18 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, cons
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 64, 112 (zamba2's shared
-// block) or 128. Anything else returns cudaErrorInvalidValue without
-// launching. `work` is the split workspace the wrapper allocates,
-// repro_flash_decode_workspace floats.
+// block), 128 or 160 (stablelm-12b). Anything else returns
+// cudaErrorInvalidValue without launching. `work` is the split workspace
+// the wrapper allocates, repro_flash_decode_workspace floats.
 #define DISPATCH(PAGED, ...)                                                         \
   if (dtype == 0 && d == 64) return launch<float, 64, PAGED>(__VA_ARGS__);           \
   if (dtype == 0 && d == 112) return launch<float, 112, PAGED>(__VA_ARGS__);         \
   if (dtype == 0 && d == 128) return launch<float, 128, PAGED>(__VA_ARGS__);         \
+  if (dtype == 0 && d == 160) return launch<float, 160, PAGED>(__VA_ARGS__);         \
   if (dtype == 1 && d == 64) return launch<__nv_bfloat16, 64, PAGED>(__VA_ARGS__);   \
   if (dtype == 1 && d == 112) return launch<__nv_bfloat16, 112, PAGED>(__VA_ARGS__); \
   if (dtype == 1 && d == 128) return launch<__nv_bfloat16, 128, PAGED>(__VA_ARGS__); \
+  if (dtype == 1 && d == 160) return launch<__nv_bfloat16, 160, PAGED>(__VA_ARGS__); \
   return (int)cudaErrorInvalidValue;
 
 extern "C" {

@@ -3,10 +3,11 @@
 ``torch.autograd.Function`` that joins them.
 
 Layout is the kernels' (B, H, S, D), contiguous and 16-byte aligned,
-bf16 or f32, head_dim 64, 112 (zamba2-7b's shared block) or 128. In bf16
-all three run on the tensor cores (``mma.sync``, ``ldmatrix``,
-``cp.async``); in f32 all three run the scalar design, which holds them
-to 1e-5 of the plain version. Each
+bf16 or f32, head_dim 64, 112 (zamba2-7b's shared block), 128 or 160
+(stablelm-12b). In bf16 all three run on the tensor cores (``mma.sync``,
+``ldmatrix``, ``cp.async``; at head_dim 160 the dK/dV call launches two
+passes, dV then dK, one launch counted); in f32 all three run the scalar
+design, which holds them to 1e-5 of the plain version. Each
 wrapper routes on the device of the tensor it is given: a CPU tensor
 takes the plain PyTorch version (``ref.py``); a CUDA tensor launches the
 kernel or raises, never falls back. ``LAUNCHES`` counts the kernel
@@ -28,7 +29,7 @@ from .ref import (attention_bwd_dkdv_ref, attention_bwd_dq_ref,
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkdv": 0}
-HEAD_DIMS = (64, 112, 128)
+HEAD_DIMS = (64, 112, 128, 160)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -9,7 +9,8 @@ cache's capacity.
 
 Model layout throughout: q (B, 1, H, D); the linear cache (B, S, H_kv, D)
 and the pools (N, page_size, H_kv, D) hold the kv heads once, and query
-head h reads kv head h // (H // H_kv). bf16 or f32, head_dim 64, 112 or 128.
+head h reads kv head h // (H // H_kv). bf16 or f32, head_dim 64, 112, 128
+or 160.
 Each wrapper routes on the device of the tensor it is given: a CPU tensor
 takes the plain PyTorch version (``ref.py``, with the reference's
 repeated-kv signature); a CUDA tensor launches the kernel or raises,
@@ -30,7 +31,7 @@ from .flash_attention import _DTYPES, _route
 from .ref import flash_decode_paged_ref, flash_decode_ref
 
 LAUNCHES: Dict[str, int] = {"flash_decode": 0, "flash_decode_paged": 0}
-HEAD_DIMS = (64, 112, 128)
+HEAD_DIMS = (64, 112, 128, 160)
 
 
 def _workspace(b: int, h: int, d: int, capacity: int, device):

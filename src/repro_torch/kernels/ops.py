@@ -10,7 +10,8 @@ and autotuning is a later slice.
 
 Training takes ``flash_attention`` and ``ssd``; serving takes
 ``flash_attention`` for the prefill (also at a query offset), the two
-decode entries (head_dim 64, 112 or 128) and, for the hybrid's Mamba2
+decode entries (head_dim 64, 112, 128 or 160; the linear one also
+serves a sliding window's ring buffer) and, for the hybrid's Mamba2
 layers, ``ssd_prefill``, which continues a cached SSM state over the
 prompt and returns the state decode goes on from."""
 from __future__ import annotations

@@ -124,6 +124,36 @@ def flash_decode_paged_ref(q, k_pool, v_pool, pages, lengths):
     return flash_decode_ref(q, k, v, lengths)
 
 
+def ring_abs_pos(index: torch.Tensor, s_cache: int) -> torch.Tensor:
+    """The reference's ``_ring_abs_pos``: the absolute position each ring
+    row holds after the write at ``index % s_cache``. index: (B,) ->
+    (B, S_cache); row j holds index - ((index - j) mod S_cache)."""
+    rows = torch.arange(s_cache, device=index.device)[None, :]
+    back = (index[:, None] % s_cache - rows) % s_cache
+    return index[:, None] - back
+
+
+def ring_decode_ref(q, k, v, index, window):
+    """The reference's decode over a sliding window's ring buffer, its
+    mask as written: row j is valid iff the position it holds (``
+    ring_abs_pos``) is >= 0, <= index and > index - window. q: (B, 1, H,
+    D); k/v: (B, S_cache, H, D) with kv heads already repeated; index:
+    (B,) the decode positions, already written. The model's path runs
+    the linear decode kernel with lengths min(index + 1, S_cache)
+    instead (``models/attention.attention_decode``); this is the
+    yardstick it is held to. Returns (B, 1, H, D) in q.dtype."""
+    d = q.shape[-1]
+    pos = ring_abs_pos(index, k.shape[1])
+    valid = ((pos <= index[:, None]) & (pos > index[:, None] - window)
+             & (pos >= 0))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float()) * d ** -0.5
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.to(q.dtype)
+
+
 # ---------------------------------------------------------------------- #
 # Mamba2 SSD
 # ---------------------------------------------------------------------- #

@@ -12,14 +12,18 @@ resulting cache rows into the slot (dense) or into pool pages (paged), so
 a reused slot never sees the previous occupant's rows.
 
 Idle slots keep stepping; their tokens are discarded. Their K/V writes
-never land: a dense slot's index may run past ``max_len`` and its write
-is dropped (``attention._scatter_rows``), and a paged slot with no page
-writes into the pool's scratch page. The hybrid's Mamba2 conv windows and
-SSM states are per slot in both layouts: an idle slot's keep stepping,
-and an admission overwrites them with its own prefill's.
+never land where a request reads: a dense slot's index may run past
+``max_len`` and its write is dropped (``attention._scatter_rows``), a
+paged slot with no page writes into the pool's scratch page, and a ring
+buffer's idle slot writes into its own ring, which the next admission
+overwrites whole. The hybrid's Mamba2 conv windows and SSM states are
+per slot in both layouts: an idle slot's keep stepping, and an admission
+overwrites them with its own prefill's.
 
-The dense, vlm and hybrid families (the port's model); prefix sharing for
-dense and vlm only, as in the reference. Degraded mode as in the
+The dense, vlm, moe and hybrid families (the port's model). A sliding
+window's ring buffer serves in the dense mode; paging needs the linear
+layout. Prefix sharing for dense and vlm, and for moe under the dense
+dispatch, as in the reference. Degraded mode as in the
 reference: per-request deadlines with timeout shedding, admission
 brown-out, and bounded retry of transient segment faults
 (``fault_injector``, ``retry_policy``), all off by default.
@@ -40,7 +44,7 @@ from repro_torch.launch.prefix import PrefixTrie
 from repro_torch.launch.serve import (_device, _make_scan_generate,
                                       prefill_extend_cached)
 from repro_torch.models import init_cache, init_paged_cache, prefill
-from repro_torch.models.model import _require_ported
+from repro_torch.models.model import _require_ported, has_linear_kv
 from repro_torch.tree import flatten
 from repro_torch.util.retry import RetryPolicy, retry_call
 
@@ -94,19 +98,28 @@ class DecodeEngine:
                  fault_injector: Optional[ScriptedFaults] = None,
                  retry_policy: Optional[RetryPolicy] = None,
                  retry_seed: int = 0, sleep=time.sleep):
-        _require_ported(cfg, serving=True)
+        _require_ported(cfg)
         if prefix_share:
             if not paged:
                 raise ValueError("prefix_share requires paged=True")
             # bitwise contract: the suffix prefill (prefill_extend) gives
-            # the full prefill's rows; the hybrid's recurrent state is not
+            # the full prefill's rows. It does for dense and vlm attention
+            # and for MoE under the per-token "dense" dispatch; the einsum
+            # and scatter dispatches size their capacity by the sequence
+            # length, and the hybrid's recurrent state is not
             # page-addressable at all
-            if cfg.family not in ("dense", "vlm"):
+            if cfg.family == "moe" and cfg.moe_dispatch != "dense":
+                raise ValueError(
+                    f"prefix_share needs a bitwise-stable suffix prefill; "
+                    f"MoE under moe_dispatch {cfg.moe_dispatch!r} sizes its "
+                    f"capacity by the sequence length (only 'dense' does "
+                    f"not)")
+            if cfg.family not in ("dense", "vlm", "moe"):
                 raise ValueError(
                     f"prefix_share needs a bitwise-stable suffix prefill; "
                     f"family {cfg.family!r} carries recurrent state across "
                     f"positions and has none")
-        if paged and not _has_linear_kv(cfg):
+        if paged and not has_linear_kv(cfg):
             raise ValueError(
                 f"paged KV requires a linear-layout KV cache; family "
                 f"{cfg.family!r} (window {cfg.sliding_window}) has none")
@@ -222,15 +235,17 @@ class DecodeEngine:
         ``retry_after`` hint. ``priority`` orders brown-out shedding
         (lower priorities shed first); admission itself stays FIFO."""
         prompt = np.asarray(prompt, np.int64)
-        # one cache row per prompt + generated token, and a slot steps to
-        # the end of its last segment
-        segs = -(-max_new_tokens // self.segment)
-        need = prompt.shape[0] + segs * self.segment
-        if need > self.max_len:
-            raise ValueError(
-                f"request needs {need} cache rows (prompt {prompt.shape[0]}"
-                f" + {segs}x{self.segment}-step segments) but max_len is "
-                f"{self.max_len}")
+        if has_linear_kv(self.cfg):
+            # a linear cache holds one row per prompt + generated token,
+            # and a slot steps to the end of its last segment; a ring
+            # buffer wraps
+            segs = -(-max_new_tokens // self.segment)
+            need = prompt.shape[0] + segs * self.segment
+            if need > self.max_len:
+                raise ValueError(
+                    f"request needs {need} cache rows (prompt "
+                    f"{prompt.shape[0]} + {segs}x{self.segment}-step "
+                    f"segments) but max_len is {self.max_len}")
         rid = self._next_rid
         self._next_rid += 1
         now = self._clock()
@@ -682,17 +697,6 @@ class DecodeEngine:
 
 
 # ---------------------------------------------------------------------- #
-def _has_linear_kv(cfg) -> bool:
-    """True if decode writes one linear K/V row per absolute position, so
-    that the K/V leaves can be paged: the dense and vlm families, and the
-    hybrid when it has a shared attention block. A sliding window's ring
-    buffer wraps."""
-    if cfg.sliding_window > 0:
-        return False
-    return cfg.family in ("dense", "vlm") or (
-        cfg.family == "hybrid" and cfg.attn_every > 0)
-
-
 def _is_pool(key: str) -> bool:
     """Whether the cache leaf at flat key ``key`` ("k", "shared/v", ...)
     is K/V, which the paged layout keeps in pools."""

@@ -27,6 +27,7 @@ import torch
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.models import (decode_step, init_cache, init_params,
                                 prefill, prefill_extend)
+from repro_torch.models.model import has_linear_kv
 
 
 def _device(params) -> torch.device:
@@ -88,16 +89,19 @@ def generate(cfg, params, prompt, *, max_new_tokens: int = 16,
     parameters' device. Returns the tokens, (B, max_new_tokens) int64 on
     the CPU.
 
-    The cache holds one row per prompt and generated token, so
+    A linear cache holds one row per prompt and generated token, so
     S + max_new_tokens must not exceed ``max_len``: the port raises
     ``ValueError`` where the reference's ``dynamic_update_slice`` would
-    clamp the write silently. The first token is the prefill's argmax, as
-    in the reference; later ones are sampled from ``generator`` unless
-    ``greedy``."""
+    clamp the write silently. A sliding window's ring buffer of
+    min(window, max_len) rows wraps instead, and takes any length. The
+    first token is the prefill's argmax, as in the reference; later ones
+    are sampled from ``generator`` unless ``greedy``. A MoE layer's
+    einsum and scatter dispatches route a prompt in groups of
+    min(256, S) tokens, so S must be a multiple of its group."""
     dev = _device(params)
     prompt = torch.as_tensor(prompt, device=dev).long()
     b, plen = prompt.shape
-    if plen + max_new_tokens > max_len:
+    if has_linear_kv(cfg) and plen + max_new_tokens > max_len:
         raise ValueError(f"prompt of {plen} + {max_new_tokens} new tokens "
                          f"does not fit max_len {max_len}")
     if generator is None and not greedy:

@@ -7,8 +7,10 @@ tensor's device: on the card the flash-attention forward kernel (training,
 one-shot and suffix prefill) and the flash-decode kernels (decode over a
 linear or paged cache), on the CPU their plain PyTorch versions
 (``kernels/ref.py``). The port has no switch between a kernel and its
-plain version other than the device. Decode caches are linear: a
-sliding-window ring buffer comes with the first windowed family.
+plain version other than the device. Decode caches are linear (row t
+holds position t) or, with a sliding window, a ring buffer (position t
+in row t % rows), as in the reference; both decode through the same
+flash-decode kernel (``attention_decode`` says why the ring can).
 
 Caches are written in place: a decode step writes one row per example
 into the tensors it is given, and a prefill writes the prompt's rows.
@@ -80,21 +82,31 @@ def attention(p, x, cos, sin, *, n_heads, n_kv_heads, head_dim,
 
 
 def attention_prefill(p, x, cos, sin, cache, *, n_heads, n_kv_heads,
-                      head_dim):
+                      head_dim, window=0):
     """One-shot prefill: attend over the whole prompt (the math of
-    ``attention``) and write its K/V rows into rows ``[0, S)`` of a fresh
-    linear decode cache {"k", "v"} (B, S_cache, Hkv, D)."""
+    ``attention``, with the window) and write its K/V rows into a fresh
+    decode cache {"k", "v"} (B, S_cache, Hkv, D): rows ``[0, S)`` of a
+    linear cache (``window == 0``), or, for a ring buffer, the last
+    min(S, S_cache) positions t into rows t % S_cache (distinct rows, so
+    one indexed write)."""
     s = x.shape[1]
     q, k, v = _qkv(p, x, cos, sin, n_heads, n_kv_heads, head_dim)
     s_cache = cache["k"].shape[1]
-    if s > s_cache:
-        raise ValueError(f"prompt of {s} rows does not fit a cache of "
-                         f"{s_cache}")
-    cache["k"][:, :s] = k.to(cache["k"].dtype)
-    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    if window > 0:
+        keep = min(s, s_cache)
+        rows = torch.arange(s - keep, s, device=x.device) % s_cache
+        cache["k"][:, rows] = k[:, s - keep:].to(cache["k"].dtype)
+        cache["v"][:, rows] = v[:, s - keep:].to(cache["v"].dtype)
+    else:
+        if s > s_cache:
+            raise ValueError(f"prompt of {s} rows does not fit a cache of "
+                             f"{s_cache}")
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
     groups = n_heads // n_kv_heads
     out = ops.flash_attention(q, _repeat_kv(k, groups),
-                              _repeat_kv(v, groups), causal=True)
+                              _repeat_kv(v, groups), causal=True,
+                              window=window)
     return _out(p, out), cache
 
 
@@ -123,18 +135,34 @@ def attention_prefill_extend(p, x, cos, sin, cache, *, start, n_heads,
 
 
 def attention_decode(p, x, cos, sin, cache, index, *, n_heads, n_kv_heads,
-                     head_dim, pages=None):
+                     head_dim, window=0, pages=None):
     """One-token decode. x: (B, 1, D); ``index``: (B,) absolute decode
-    positions. cache {"k", "v"}: (B, max_len, Hkv, D), linear. ``pages``
-    switches to the paged layout: cache k/v are shared pools
-    (N_pages + 1, page_size, Hkv, D), the last page a scratch page, and
-    ``pages`` is the (B, P) block table (-1 = unassigned)."""
+    positions. cache {"k", "v"}: (B, S_cache, Hkv, D), linear
+    (``window == 0``, S_cache == max_len) or a ring buffer (S_cache ==
+    min(window, max_len)). ``pages`` switches to the paged layout (linear
+    only): cache k/v are shared pools (N_pages + 1, page_size, Hkv, D),
+    the last page a scratch page, and ``pages`` is the (B, P) block table
+    (-1 = unassigned).
+
+    The ring runs on the linear flash-decode kernel. The reference keeps
+    it off its kernel (``models/attention.py``, ``attention_decode``) and
+    masks ring row j by the absolute position it holds,
+    ``_ring_abs_pos``: valid iff that position is >= 0 and within the
+    window. Since S_cache <= window, the window test always holds, and
+    the position, index - ((index - j) mod S_cache), is >= 0 exactly for
+    rows j < min(index + 1, S_cache): the valid rows are a prefix. So the
+    kernel with lengths min(index + 1, S_cache) takes the same keys, and
+    the same softmax over them, summed in row order.
+    ``ref.ring_decode_ref`` keeps the reference's mask as the yardstick."""
     q, k, v = _qkv(p, x, cos, sin, n_heads, n_kv_heads, head_dim)
     if pages is not None:
         return _attention_decode_paged(p, q, k, v, cache, index, pages)
-    _scatter_rows(cache["k"], k, index)
-    _scatter_rows(cache["v"], v, index)
-    out = ops.flash_decode(q, cache["k"], cache["v"], index + 1)
+    s_cache = cache["k"].shape[1]
+    row = index % s_cache if window else index
+    _scatter_rows(cache["k"], k, row)
+    _scatter_rows(cache["v"], v, row)
+    lengths = (index + 1).clamp_max(s_cache) if window else index + 1
+    out = ops.flash_decode(q, cache["k"], cache["v"], lengths)
     return _out(p, out), cache
 
 

@@ -51,6 +51,13 @@ def _err(got, want):
     ((1, 4, 1000, 128), torch.bfloat16, True, 0, 2 ** -7),
     ((2, 2, 320, 64), torch.bfloat16, False, 0, 2 ** -7),
     ((1, 4, 1000, 64), torch.bfloat16, True, 200, 2 ** -7),
+    # stablelm-12b's head_dim 160 (bf16 dK/dV in two passes)
+    ((1, 4, 1000, 160), torch.float32, True, 0, 1e-5),
+    ((2, 2, 320, 160), torch.float32, False, 0, 1e-5),
+    ((1, 4, 1000, 160), torch.float32, True, 200, 1e-5),
+    ((1, 4, 1000, 160), torch.bfloat16, True, 0, 2 ** -7),
+    ((2, 2, 320, 160), torch.bfloat16, False, 0, 2 ** -7),
+    ((1, 4, 1000, 160), torch.bfloat16, True, 200, 2 ** -7),
 ])
 def test_kernels_match_plain(cuda, shape, dtype, causal, window, tol):
     gen = torch.Generator(device=cuda)
@@ -78,7 +85,7 @@ def test_kernels_match_plain(cuda, shape, dtype, causal, window, tol):
 # head_dim, ragged, non-causal and windowed; and the whole function
 # (kernels, delta in torch) against the same composition of plain
 # versions, where dQ's dS = P (dP - delta) cancels
-@pytest.mark.parametrize("d", [64, 112, 128])
+@pytest.mark.parametrize("d", [64, 112, 128, 160])
 @pytest.mark.parametrize("shape,causal,window", [
     ((1, 4, 1000), True, 0),
     ((2, 2, 320), False, 0),
@@ -116,6 +123,8 @@ def test_bf16_dq_matches_plain(cuda, d, shape, causal, window):
     (130, 64, 64, torch.float32, 1e-5),
     (1000, 333, 64, torch.bfloat16, 2 ** -7),
     (1000, 333, 128, torch.bfloat16, 2 ** -7),
+    (1000, 333, 160, torch.float32, 1e-5),
+    (1000, 333, 160, torch.bfloat16, 2 ** -7),
 ])
 def test_forward_at_a_query_offset(cuda, sk, start, d, dtype, tol):
     """The suffix prefill's form (Sk - start query rows at absolute
@@ -212,6 +221,10 @@ def _decode_inputs(gen, b, h, h_kv, s, d, dtype, page_size=16, lengths=None):
     (4, 32, 32, 1000, 112, torch.float32, 1e-5),
     (3, 8, 2, 333, 112, torch.float32, 1e-5),
     (3, 8, 2, 333, 112, torch.bfloat16, 2 ** -7),
+    # stablelm-12b: 32 heads of 160 over 8 kv heads (f32: two 16-byte
+    # loads a lane)
+    (4, 32, 8, 1000, 160, torch.bfloat16, 2 ** -7),
+    (4, 32, 8, 1000, 160, torch.float32, 1e-5),
 ])
 def test_decode_kernels_match_plain(cuda, b, h, h_kv, s, d, dtype, tol):
     gen = torch.Generator(device=cuda)
@@ -245,6 +258,8 @@ def test_decode_kernels_match_plain(cuda, b, h, h_kv, s, d, dtype, tol):
     (6, 1, 64, torch.float32),
     (32, 32, 112, torch.bfloat16),
     (4, 4, 112, torch.float32),
+    (32, 8, 160, torch.bfloat16),
+    (32, 8, 160, torch.float32),
 ])
 def test_decode_row_does_not_depend_on_the_batch(cuda, h, h_kv, d, dtype):
     """A slot's row alone (B = 1, in a longer cache) and among 8 slots of
@@ -294,6 +309,50 @@ def test_decode_step_on_the_card_takes_the_kernels(cuda):
         assert fd.LAUNCHES[key] == steps > 0
         outs.append([out[r] for r in rids])
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("s,window,index", [
+    (64, 64, [0, 63, 64, 200]), (48, 64, [5, 47, 48, 300])])
+def test_ring_decode_matches_the_ring_mask(cuda, s, window, index):
+    """A sliding window's ring of S <= window rows through the linear
+    decode kernel with lengths min(index + 1, S), against the reference's
+    ring-masked decode (``ref.ring_decode_ref``)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(8)
+    b, h, h_kv, d = len(index), 8, 2, 128
+    q = torch.randn((b, 1, h, d), generator=gen, device=cuda)
+    k, v = (torch.randn((b, s, h_kv, d), generator=gen, device=cuda)
+            for _ in range(2))
+    index = torch.tensor(index, device=cuda)
+    out = fd.flash_decode(q, k, v, (index + 1).clamp_max(s))
+    want = ref.ring_decode_ref(q, k.repeat_interleave(4, 2),
+                               v.repeat_interleave(4, 2), index, window)
+    torch.cuda.synchronize()
+    assert _err(out, want) <= 1e-5
+
+
+def test_windowed_engine_on_the_card_takes_the_decode_kernel():
+    """A windowed config serves through the linear decode kernel, one
+    launch a layer and step, and the dense engine's tokens are solo
+    generation's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(get_config("glm4-9b").reduced(),
+                              dtype="float32", sliding_window=8)
+    params = init_params(cfg, 0, device="cuda")
+    prompts = [torch.randint(0, cfg.vocab, (n,)).numpy()
+               for n in (5, 19, 3)]
+    eng = DecodeEngine(cfg, params, n_slots=2, max_len=16, segment=4)
+    fd.reset_launches()
+    rids = [eng.submit(p, 10) for p in prompts]
+    out = eng.run()
+    assert fd.LAUNCHES["flash_decode"] == (
+        eng.stats["segments"] * eng.segment * cfg.n_layers)
+    for r, p in zip(rids, prompts):
+        assert out[r] == serve.generate(
+            cfg, params, torch.as_tensor(p)[None, :], max_new_tokens=10,
+            max_len=16)[0].tolist()
 
 
 def _ssd_inputs(gen, b, s, h, p, n, dtype):

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``repro_torch``,
-``chip_smoke`` and ``ssd_variants`` loads neither JAX nor the reference
-package."""
+``chip_smoke``, ``ssd_variants`` and ``flash_variants`` loads neither JAX
+nor the reference package."""
 import os
 import subprocess
 import sys
@@ -17,6 +17,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import ssd_variants
+import flash_variants
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                 or m == "repro" or m.startswith("repro."))
@@ -27,7 +28,10 @@ for name in ("kernels.flash_attention", "kernels.flash_decode",
              "launch.serve", "launch.engine", "launch.prefix",
              "core.calibration", "core.simulator", "core.schedulers",
              "launch.calibrate", "launch.replay", "checkpoint.npz",
-             "util.retry", "launch.train", "launch.quickstart"):
+             "util.retry", "launch.train", "launch.quickstart",
+             "models.moe", "configs.glm4_9b", "configs.stablelm_12b",
+             "configs.llama3_405b", "configs.granite_moe",
+             "configs.llama4_maverick"):
     assert "repro_torch." + name in names, name
 """
 
@@ -47,7 +51,8 @@ def test_no_source_of_the_port_names_jax_or_the_reference():
     """A lazy import inside a function would escape the import check."""
     bad = []
     paths = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "ssd_variants.py")]
+             os.path.join(ROOT, "ssd_variants.py"),
+             os.path.join(ROOT, "flash_variants.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
     for path in paths:

@@ -35,7 +35,9 @@ def _configs(name):
     return jc, tc
 
 
-@pytest.mark.parametrize("name", MODELS + ["zamba2-7b"])
+@pytest.mark.parametrize("name", MODELS + [
+    "zamba2-7b", "glm4-9b", "stablelm-12b", "llama3-405b",
+    "granite-moe-3b-a800m", "llama4-maverick-400b-a17b"])
 def test_configs_match_reference(name):
     assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
         jax_config(name))
@@ -47,7 +49,7 @@ def test_unported_families_name_their_slice():
     with pytest.raises(NotImplementedError, match="remaining-families"):
         get_config("xlstm-1.3b")
     cfg = dataclasses.replace(get_config("minicpm-2b").reduced(),
-                              family="moe")
+                              family="ssm")
     with pytest.raises(NotImplementedError, match="remaining-families"):
         init_params(cfg, 0, device="cpu")
 

@@ -194,23 +194,27 @@ def test_cache_index_advances_and_overflow_raises():
 
 
 def test_sliding_window_cache_raises():
-    """Decode caches are linear: a windowed config (none of the ported
-    families has one) is refused by every serving entry rather than
-    decoded over the wrong rows."""
+    """A windowed config decodes over a ring buffer: ``init_cache``,
+    ``prefill`` and ``decode_step`` take it, and what the reference
+    refuses a window (``init_paged_cache``, ``prefill_extend``, and so
+    the paged engine) raises, naming the linear layout it needs."""
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.models import init_paged_cache
     tc = dataclasses.replace(get_config("minicpm-2b").reduced(),
                              dtype="float32", sliding_window=8)
     params = init_params(tc, 1, device="cpu")
-    with pytest.raises(ValueError, match="linear"):
-        init_cache(tc, 2, 16, device="cpu")
-    cache = init_cache(get_config("minicpm-2b").reduced(), 2, 16,
-                       dtype="float32", device="cpu")
+    cache = init_cache(tc, 2, 16, device="cpu")
+    assert cache["units"]["k"].shape[2] == 8
     tokens = torch.zeros((2, 4), dtype=torch.long)
+    _, cache = prefill(tc, params, cache, tokens)
+    _, cache = decode_step(tc, params, cache, tokens[:, :1])
+    assert int(cache["index"]) == 5
     with pytest.raises(ValueError, match="linear"):
-        prefill(tc, params, cache, tokens)
-    with pytest.raises(ValueError, match="linear"):
-        decode_step(tc, params, cache, tokens[:, :1])
+        init_paged_cache(tc, 2, 16, page_size=8, n_pages=4, device="cpu")
     with pytest.raises(ValueError, match="linear"):
         prefill_extend(tc, params, cache, tokens, start=2)
+    with pytest.raises(ValueError, match="linear"):
+        DecodeEngine(tc, params, paged=True, max_len=16, page_size=8)
 
 
 def test_main_runs_on_the_cpu(capsys):
