@@ -18,8 +18,12 @@ prefill on the SSD forward with a state in and out and the flash
 forward, its decode on the flash-decode kernels at head_dim 112; and the
 remaining dense families and MoE: stablelm-12b on the flash kernels at
 head_dim 160, glm4-9b decoding over a sliding window's ring buffer on the
-linear decode kernel, granite-moe-3b-a800m's MoE layers. Phases, in
-order; each prints its own line and any failure exits non-zero:
+linear decode kernel, granite-moe-3b-a800m's MoE layers; and the last
+two families: xlstm-1.3b (no kernel: its mLSTM and sLSTM are plain
+PyTorch, as the reference's are plain JAX) and whisper-tiny, whose
+cross-attention takes the flash kernels with Sk != Sq, backward
+included, and the linear decode kernel. Phases, in order; each prints
+its own line and any failure exits non-zero:
 
 1. build    - builds the three kernel libraries (flash attention, flash
               decode, SSD) from ``src/repro_torch/kernels/csrc``, one
@@ -55,7 +59,12 @@ order; each prints its own line and any failure exits non-zero:
               over a ring of 8192 rows, two slots past the window and
               one partly filled (index 5000),
               the linear kernel at lengths min(index + 1, 8192) against
-              the reference's ring mask, timed; times
+              the reference's ring mask, timed; whisper-tiny's
+              cross-attention (q 448 rows over k/v 1500, 6 heads of
+              64, B 8, non-causal) forward, dQ and dK/dV in bf16
+              (timed, bound at (Sq, Sk)) and f32, a ragged Sq (37)
+              and Sq > Sk (300 over 130) in both, and its decode over
+              1500 encoder rows (timed); times
               kernel, plain version
               and the PyTorch library call (SDPA, a yardstick the port
               never calls; none exists for the SSD scan), and the host's
@@ -154,6 +163,21 @@ order; each prints its own line and any failure exits non-zero:
               granite-moe and llama4-maverick under the dense dispatch
               (capacity factor 8): paged == dense, prefix-shared ==
               private, engine == solo.
+16. xlstm_whisper - bf16, full width: (a) xlstm-1.3b at all 48 layers
+              through ``ScheduleExecutor`` at B 4, seq 256 (one mLSTM
+              chunk; the one cut: the sLSTM's per-token loop took 20.4
+              s a step at 512), s = 2, a warm-up and two timed steps,
+              the last profiled (kernels, busy share); ``generate`` at batch 4,
+              1024-token prompts, 64 tokens, scan == eager, and a
+              decode profile; every kernel launched 0 times; (b)
+              whisper-tiny (4 + 4 layers, 1500 frames) through the
+              executor at decoder seq 448, B 8, s = 2 (24 flash
+              forwards and 12 each of dQ and dK/dV a micro-batch) and
+              ``generate`` at batch 4, 16-token prompts, 64 tokens,
+              max_len 448 (12 forwards a prefill, the encoder's 4
+              among them; 8 decodes a step); (c) reduced f32: the
+              xLSTM engine == solo; Whisper's paged decode == dense
+              and scan == eager, bitwise. Prints its seconds.
 
 Then the card's name and power limit, the ``kernels`` JSON line, and as
 the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -338,29 +362,33 @@ def phase_build():
 # ---------------------------------------------------------------------- #
 # phase 2: kernel parity and timing
 # ---------------------------------------------------------------------- #
-def _pairs(s: int, causal: bool, window: int) -> int:
-    """(q, k) score entries the mask keeps: the work this data needs."""
+def _pairs(s: int, causal: bool, window: int, sk=None) -> int:
+    """(q, k) score entries the mask keeps among s query rows and sk (s
+    unless given) key rows: the work this data needs."""
     from repro_torch.kernels.ref import score_mask
-    return int(score_mask(s, causal=causal, window=window,
-                          device="cpu").sum())
+    return int(score_mask(s, causal=causal, window=window, device="cpu",
+                          sk=sk).sum())
 
 
-def _bounds(shape, dtype_name, causal, window) -> dict:
+def _bounds(shape, dtype_name, causal, window, sk=None) -> dict:
     """Least milliseconds each kernel could take on an H100: the larger of
     bytes over the memory rate (inputs read once, outputs written once)
-    and FLOPs over the peak for the input type."""
+    and FLOPs over the peak for the input type. ``shape`` is q's
+    (B, H, Sq, D); k and v have ``sk`` rows (Sq unless given)."""
     b, h, s, d = shape
+    sk = s if sk is None else sk
     elt = 2 if dtype_name == "bfloat16" else 4
-    mat = b * h * s * d * elt
+    mat_q, mat_k = b * h * s * d * elt, b * h * sk * d * elt
     row = b * h * s * 4
-    pairs = b * h * _pairs(s, causal, window)
+    pairs = b * h * _pairs(s, causal, window, sk)
     work = {
-        # QK^T and PV
-        "flash_fwd": (4 * mat + row, 4 * d * pairs),
-        # QK^T, dO V^T, dS K
-        "flash_bwd_dq": (5 * mat + 2 * row, 6 * d * pairs),
-        # QK^T, dO V^T, P^T dO, dS^T Q
-        "flash_bwd_dkdv": (6 * mat + 2 * row, 8 * d * pairs),
+        # QK^T and PV: q, k, v in, O and lse out
+        "flash_fwd": (2 * mat_q + 2 * mat_k + row, 4 * d * pairs),
+        # QK^T, dO V^T, dS K: q, k, v, dO, lse, delta in, dQ out
+        "flash_bwd_dq": (3 * mat_q + 2 * mat_k + 2 * row, 6 * d * pairs),
+        # QK^T, dO V^T, P^T dO, dS^T Q: q, k, v, dO, lse, delta in, dK,
+        # dV out
+        "flash_bwd_dkdv": (2 * mat_q + 4 * mat_k + 2 * row, 8 * d * pairs),
     }
     out = {}
     for name, (nbytes, flops) in work.items():
@@ -521,6 +549,96 @@ def suffix_case(label, b, h, sk, start, d, dtype):
     if bad or not same:
         raise AssertionError(f"forward at a query offset disagrees in "
                              f"{label}: {bad}, equals one-shot rows {same}")
+
+
+def rect_case(label, b, h, sq, sk, d, dtype, timed):
+    """Whisper's cross-attention: sq decoder rows over sk encoder rows,
+    non-causal. The forward, dQ and dK/dV kernels and the whole
+    autograd.Function against their plain versions (in f32 also against
+    autograd through the plain forward), and, if ``timed``, kernel /
+    plain / SDPA times and each kernel's bound at (sq, sk)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def rand(s):
+        return torch.randn((b, h, s, d), generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+    q, do, k, v = rand(sq), rand(sq), rand(sk), rand(sk)
+    kw = dict(causal=False)
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    o_ref, lse_ref = ref.attention_ref(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+    dq_ref = ref.attention_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+    dk_ref, dv_ref = ref.attention_bwd_dkdv_ref(q, k, v, do, lse, delta,
+                                                **kw)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves,
+                                do)
+    delta_ref = (do.float() * o_ref.float()).sum(dim=-1)
+    plain = (ref.attention_bwd_dq_ref(q, k, v, do, lse_ref, delta_ref,
+                                      **kw),
+             *ref.attention_bwd_dkdv_ref(q, k, v, do, lse_ref, delta_ref,
+                                         **kw))
+    pairs = {"flash_fwd": ((o, o_ref), (lse, lse_ref)),
+             "flash_bwd_dq": ((dq, dq_ref),),
+             "flash_bwd_dkdv": ((dk, dk_ref), (dv, dv_ref)),
+             "function": tuple(zip(grads, plain))}
+    if dtype == torch.float32:
+        leaves_r = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        grads_r = torch.autograd.grad(
+            ref.attention_ref(*leaves_r, **kw)[0], leaves_r, do)
+        pairs["autograd"] = tuple(zip(grads, grads_r))
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    tol = TOL[dname]
+    errs = {n: max(_row_err(a, w) for a, w in ps) for n, ps in pairs.items()}
+    row = {"case": label, "rectangular": True, "q": [b, h, sq, d],
+           "kv": [b, h, sk, d], "dtype": dname, "causal": False, "tol": tol,
+           "row_rel_err": errs,
+           "max_abs_err": {n: max(_abs_err(a, w) for a, w in ps)
+                           for n, ps in pairs.items()},
+           "shapes_ok": dq.shape == q.shape and dk.shape == k.shape}
+    bad = {n: e for n, e in errs.items() if not e <= tol}
+    if bad or not row["shapes_ok"]:
+        log("parity", **row)
+        raise AssertionError(f"rectangular kernel disagrees with its plain "
+                             f"version in {label}: {bad} > {tol}")
+    if timed:
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
+        lib_bwd = cuda_time(lambda: torch.autograd.grad(
+            sdpa_out, (qg, kg, vg), do, retain_graph=True), iters=10)
+        library = {"flash_fwd": cuda_time(
+            lambda: F.scaled_dot_product_attention(q, k, v), iters=10),
+            "flash_bwd_dq": lib_bwd, "flash_bwd_dkdv": lib_bwd}
+        fns = {
+            "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                          lambda: ref.attention_ref(q, k, v, **kw)),
+            "flash_bwd_dq": (
+                lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                  **kw),
+                lambda: ref.attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                                 **kw)),
+            "flash_bwd_dkdv": (
+                lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                                    **kw),
+                lambda: ref.attention_bwd_dkdv_ref(q, k, v, do, lse, delta,
+                                                   **kw)),
+        }
+        bounds = _bounds((b, h, sq, d), dname, False, 0, sk)
+        row["timing"] = {
+            name: {"ms": cuda_time(kern, iters=10),
+                   "plain_ms": cuda_time(plain, iters=3),
+                   "library_ms": library[name], **bounds[name]}
+            for name, (kern, plain) in fns.items()}
+    log("parity", **row)
+    return row
 
 
 def _decode_inputs(gen, b, h, h_kv, s, d, dtype, lengths, page_size):
@@ -1171,6 +1289,19 @@ def phase_parity():
     ring = ring_case("glm4-9b ring", 3, 32, 2, LONG_WINDOW, 128, bf16,
                      [LONG_WINDOW + 1024 + 63, 2 * LONG_WINDOW + 17, 5000],
                      LONG_WINDOW)
+    # whisper-tiny: the cross-attention's decoder rows over the encoder's
+    # 1500 (6 heads of 64, B 8, decoder seq 448), non-causal, forward and
+    # backward, bf16 (timed) and f32; a ragged sq, and sq > sk; then the
+    # cross-attention's decode over 1500 cached encoder rows
+    cross = rect_case("whisper-tiny cross", 8, 6, 448, 1500, 64, bf16, True)
+    rows.append(cross)
+    rect_case("whisper-tiny cross f32", 8, 6, 448, 1500, 64, f32, False)
+    rect_case("ragged cross f32", 2, 6, 37, 1500, 64, f32, False)
+    rect_case("ragged cross bf16", 2, 6, 37, 1500, 64, bf16, False)
+    rect_case("sq > sk f32", 2, 3, 300, 130, 64, f32, False)
+    rect_case("sq > sk bf16", 2, 3, 300, 130, 64, bf16, False)
+    dec_x = decode_case("whisper-tiny cross decode", 4, 6, 6, 1500, 64,
+                        bf16, [1500] * 4, True)
     # flash_bwd_dq_mma_kernel enters dS = P (dP - delta) into dS K as one
     # bf16 operand
     log("parity", dq_ds_form="one bf16 operand", bf16_cases=len(rows),
@@ -1195,6 +1326,12 @@ def phase_parity():
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
         timing[name]["at_d160"] = dict(d160["timing"][name],
                                        max_abs_err=d160["max_abs_err"][name])
+        timing[name]["at_cross"] = dict(
+            cross["timing"][name], q=cross["q"], kv=cross["kv"],
+            max_abs_err=cross["max_abs_err"][name])
+    timing["flash_decode"]["at_cross"] = dict(
+        dec_x[1]["flash_decode"], max_abs_err=dec_x[0]["flash_decode"],
+        shape=[4, 6, 6, 1500, 64], lengths=[1500] * 4)
     timing["flash_decode"]["ring"] = dict(
         ring["timing"], shape=ring["shape"], window=ring["window"],
         max_abs_err=ring["max_abs_err"])
@@ -1233,6 +1370,17 @@ def _expect(n_layers: int, micro: int) -> dict:
     return {"flash_fwd": 2 * n_layers * micro,
             "flash_bwd_dq": n_layers * micro,
             "flash_bwd_dkdv": n_layers * micro}
+
+
+def _attention_calls(cfg) -> int:
+    """Flash-attention calls in one forward: one a layer; for whisper
+    each encoder layer's self-attention and each decoder layer's self-
+    and cross-attention; none for xLSTM, which has no attention."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.is_encoder_decoder:
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
 
 
 def _check_loss(phase: str, loss: float) -> None:
@@ -1952,26 +2100,13 @@ def _category(kernel: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def _profile_step(phase: str, cfg, ops=()):
-    """One profiled step of ``cfg`` at s = 4 after a warm-up step: device
-    time by kernel category and the device's busy share of the step; and,
-    for each host op named in ``ops`` (exact profiler keys, e.g.
-    ``aten::einsum``), the device time of the kernels it launched."""
-    import torch
+def _profile_fields(prof, wall_ms: float, ops=()) -> dict:
+    """A trace's device time by kernel category, kernels launched and the
+    device's busy share of ``wall_ms``; and, for each host op named in
+    ``ops`` (exact profiler keys, e.g. ``aten::einsum``), the device time
+    of the kernels it launched."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.cluster import JobSpec, ScheduleExecutor
-    from repro_torch.models import param_count
-    ex = ScheduleExecutor()
-    spec = JobSpec(cfg, batch=BATCH, accum_steps=4, seq=SEQ, seed=0)
-    ex.submit(cfg.name, spec, steps=2)
-    ex.start(cfg.name)
-    n_params = param_count(ex.runs[cfg.name].params)
-    ex.step_group([cfg.name])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res = ex.step_group([cfg.name])
-    by_cat, top = {}, []
+    by_cat, top, n_kernels = {}, [], 0
     by_op = {op: 0.0 for op in ops}
     for e in prof.key_averages():
         if e.key in by_op and e.device_type != DeviceType.CUDA:
@@ -1984,17 +2119,38 @@ def _profile_step(phase: str, cfg, ops=()):
         cat = _category(e.key)
         by_cat[cat] = by_cat.get(cat, 0.0) + t
         top.append((t, e.key[:90], e.count))
+        n_kernels += e.count
     top.sort(reverse=True)
     device_ms = sum(by_cat.values())
-    wall_ms = res["walltime"] * 1e3
-    log(phase, profile=True, model=cfg.name, n_layers=cfg.n_layers,
-        params=n_params, accum_steps=4, step_wall_ms=wall_ms,
+    return dict(
+        step_wall_ms=wall_ms, kernels_per_step=n_kernels,
         device_ms=device_ms if device_ms else "not measured",
         busy_share=device_ms / wall_ms if device_ms else "not measured",
         by_category_ms=by_cat,
         top_kernels=[{"ms": t, "name": n, "calls": c}
                      for t, n, c in top[:8]],
         **({"by_host_op_ms": by_op} if ops else {}))
+
+
+def _profile_step(phase: str, cfg, ops=()):
+    """One profiled step of ``cfg`` at s = 4 after a warm-up step
+    (``_profile_fields``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.cluster import JobSpec, ScheduleExecutor
+    from repro_torch.models import param_count
+    ex = ScheduleExecutor()
+    spec = JobSpec(cfg, batch=BATCH, accum_steps=4, seq=SEQ, seed=0)
+    ex.submit(cfg.name, spec, steps=2)
+    ex.start(cfg.name)
+    n_params = param_count(ex.runs[cfg.name].params)
+    ex.step_group([cfg.name])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = ex.step_group([cfg.name])
+    log(phase, profile=True, model=cfg.name, n_layers=cfg.n_layers,
+        params=n_params, accum_steps=4,
+        **_profile_fields(prof, res["walltime"] * 1e3, ops))
     del ex
     torch.cuda.empty_cache()
 
@@ -2303,7 +2459,7 @@ def _serve_counts(cfg):
     of the shared block and one SSD per Mamba2 layer."""
     if cfg.family == "hybrid":
         return cfg.n_units, cfg.n_layers
-    return cfg.n_layers, 0
+    return _attention_calls(cfg), 0
 
 
 def _engine_launches(cfg, segment, n_reqs, paged):
@@ -2603,45 +2759,59 @@ def phase_hybrid_serve():
 # ---------------------------------------------------------------------- #
 # phase 15: the remaining dense families and MoE
 # ---------------------------------------------------------------------- #
-def _executor_steps(phase: str, job: str, cfg, schedule) -> dict:
-    """``cfg`` through ``ScheduleExecutor`` at B = 4, seq 2048, bf16:
-    ``schedule`` of (reconfigured sub-batch or None, steps) from sub-batch
-    1 (s = 4). Finite losses, flash launch counts exact (remat: two
-    forwards a layer and micro-batch); step times and peak memory."""
+def _executor_steps(phase: str, job: str, cfg, schedule, batch=BATCH,
+                    seq=SEQ, sub_batch=1, profile_last=False) -> dict:
+    """``cfg`` through ``ScheduleExecutor`` (B = 4, seq 2048 unless
+    given), bf16: ``schedule`` of (reconfigured sub-batch or None, steps)
+    from ``sub_batch`` (1: s = 4). Finite losses, flash launch counts
+    exact (remat: two forwards per attention call and micro-batch); step
+    times and peak memory; with ``profile_last`` the last step traced on
+    the device alone (``_profile_fields``)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.cluster import JobSpec, ScheduleExecutor
     from repro_torch.models import param_count
     ex = ScheduleExecutor()
-    ex.submit(job, JobSpec(cfg, batch=BATCH, seq=SEQ, seed=0),
+    ex.submit(job, JobSpec(cfg, batch=batch, seq=seq, seed=0),
               steps=sum(n for _, n in schedule))
-    ex.start(job, sub_batch=1)
+    ex.start(job, sub_batch=sub_batch)
     log(phase, job=job, config=cfg.name, family=cfg.family,
         n_layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
         kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
         params=param_count(ex.runs[job].params), dtype=cfg.dtype,
         moe_dispatch=cfg.moe_dispatch if cfg.family == "moe" else None,
-        seq=SEQ, batch=BATCH)
+        seq=seq, batch=batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_all()
-    micro = 0
+    micro, walls, left = 0, [], sum(n for _, n in schedule)
     for sub, n in schedule:
         if sub is not None:
             ex.reconfigure(job, sub)
         run = ex.runs[job]
         for _ in range(n):
-            res = ex.step_group([job])
+            left -= 1
+            if profile_last and not left:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    res = ex.step_group([job])
+                log(phase, profile=True, job=job, model=cfg.name,
+                    step=run.steps_done, accum_steps=run.accum_steps,
+                    **_profile_fields(prof, res["walltime"] * 1e3))
+            else:
+                res = ex.step_group([job])
             loss = res["losses"][job]
             _check_loss(phase, loss)
             micro += run.accum_steps
+            walls.append(res["walltime"])
             log(phase, job=job, step=run.steps_done, sub_batch=run.sub_batch,
                 accum_steps=run.accum_steps, loss=loss,
                 walltime_s=res["walltime"])
     ex.finish(job)
-    launches = _expect_launches(f"{phase} {job}", _expect(cfg.n_layers,
-                                                          micro))
+    launches = _expect_launches(f"{phase} {job}",
+                                _expect(_attention_calls(cfg), micro))
     log(phase, job=job, summary=True, micro_batches=micro,
-        launches=launches,
+        launches=launches, mean_step_s_after_first=(
+            sum(walls[1:]) / len(walls[1:]) if len(walls) > 1 else None),
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
     del ex, run
     torch.cuda.empty_cache()
@@ -2649,20 +2819,23 @@ def _executor_steps(phase: str, job: str, cfg, schedule) -> dict:
 
 
 def _generate_run(phase: str, cfg, params, prompt, max_len: int, new: int,
-                  cache_rows=None) -> dict:
-    """``generate`` at full width: the prefill alone (its time, its
-    launches and, where ``cache_rows`` is given, the rows its cache holds
-    a layer), then ``engine="scan"`` and ``"eager"`` with equal tokens and
-    exact launches (one flash forward a layer for the prefill, one flash
-    decode a layer and step): prefill ms, ms a decode step, tokens/s and
-    peak memory."""
+                  cache_rows=None, frames=None) -> dict:
+    """``generate`` at full width: the prefill alone (its time, with the
+    encoder's run over ``frames`` for an encoder-decoder; its launches
+    and, where ``cache_rows`` is given, the rows its cache holds a
+    layer), then ``engine="scan"`` and ``"eager"`` with equal tokens and
+    exact launches (one flash forward per attention call for the
+    prefill, one flash decode per decoder attention call and step; none
+    for xLSTM): prefill ms, ms a decode step, tokens/s and peak
+    memory."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import init_cache
+    from repro_torch.models.model import prefill_cache_whisper
     from repro_torch.tree import flatten
     b, plen = prompt.shape
     serve.generate(cfg, params, prompt[:, :64], max_new_tokens=2,
-                   max_len=128)                       # warm-up
+                   max_len=128, frames=frames)        # warm-up
     cache = init_cache(cfg, b, max_len)
     rows = {k: t.shape[2] for k, t in flatten(cache["units"]).items()}
     if cache_rows is not None and set(rows.values()) != {cache_rows}:
@@ -2672,18 +2845,22 @@ def _generate_run(phase: str, cfg, params, prompt, max_len: int, new: int,
     torch.cuda.reset_peak_memory_stats()
     _reset_all()
     t0 = time.perf_counter()
+    if frames is not None:
+        cache = prefill_cache_whisper(cfg, params, frames, b, max_len)
     serve.prefill_one_shot(cfg, params, prompt.cuda(), cache)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    n_attn = _attention_calls(cfg)
     prefill_launches = _expect_launches(f"{phase} {cfg.name} prefill",
-                                        {"flash_fwd": cfg.n_layers})
+                                        {"flash_fwd": n_attn})
     log(phase, model=cfg.name, prefill=True, batch=b, prompt=plen,
         cache_rows_per_layer=sorted(set(rows.values())),
         prefill_ms=prefill_ms, launches=prefill_launches,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
     del cache
     torch.cuda.empty_cache()
-    expect = {"flash_fwd": cfg.n_layers, "flash_decode": cfg.n_layers * new}
+    n_dec = n_attn - (cfg.encoder_layers if cfg.is_encoder_decoder else 0)
+    expect = {"flash_fwd": n_attn, "flash_decode": n_dec * new}
     toks, launches = {}, {}
     for engine in ("scan", "eager"):
         torch.cuda.reset_peak_memory_stats()
@@ -2691,7 +2868,8 @@ def _generate_run(phase: str, cfg, params, prompt, max_len: int, new: int,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks[engine] = serve.generate(cfg, params, prompt, engine=engine,
-                                      max_new_tokens=new, max_len=max_len)
+                                      max_new_tokens=new, max_len=max_len,
+                                      frames=frames)
         wall = time.perf_counter() - t0
         launches[engine] = _expect_launches(f"{phase} {cfg.name} {engine}",
                                             expect)
@@ -2796,6 +2974,156 @@ def phase_families():
     return paths
 
 
+# ---------------------------------------------------------------------- #
+# phase 16: the last two families, xLSTM and Whisper
+# ---------------------------------------------------------------------- #
+# xLSTM trains at seq 256 (one mLSTM chunk; its prefill of 1024 tokens
+# runs four): on an H100 a step at 512 took 20.4 s, ~690k kernels, most
+# of them the sLSTM's per-token loop
+XLSTM_SEQ, WHISPER_SEQ = 256, 448
+
+
+def _paged_from_dense(cfg, dense, page_size: int):
+    """A paged cache holding a dense audio cache's rows: slot b's self K/V
+    rows in pool pages b * P .. b * P + P - 1 (P = max_len / page_size),
+    the cross K/V (dense per slot in both layouts) and ``cross_len`` as
+    they are."""
+    import torch
+    from repro_torch.models import init_paged_cache
+    b, max_len = dense["units"]["self"]["k"].shape[1:3]
+    p_tab = max_len // page_size
+    paged = init_paged_cache(cfg, b, max_len, page_size=page_size,
+                             n_pages=b * p_tab)
+    for key in ("k", "v"):
+        rows = dense["units"]["self"][key]          # (U, B, max_len, H, D)
+        paged["units"]["self"][key][:, :b * p_tab] = rows.reshape(
+            (rows.shape[0], b * p_tab, page_size) + rows.shape[3:])
+        paged["units"]["cross"][key].copy_(dense["units"]["cross"][key])
+    paged["pages"].copy_(torch.arange(b * p_tab, dtype=torch.int32,
+                                      device="cuda").reshape(b, p_tab))
+    paged["index"] = dense["index"].clone()
+    paged["cross_len"] = dense["cross_len"]
+    return paged
+
+
+def _whisper_small(phase: str) -> dict:
+    """whisper-tiny reduced, f32, on the card: decode over a paged self
+    K/V == over the dense cache and ``generate``'s scan == eager, both
+    bitwise; frames of 50 rows (``cross_len`` 50 of 64). Launches exact:
+    each decode step one paged decode (self) and one linear decode
+    (cross) a decoder layer."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.model import prefill_cache_whisper
+    cfg = dataclasses.replace(get_config("whisper-tiny").reduced(),
+                              dtype="float32")
+    params = init_params(cfg, 2)
+    rng = np.random.default_rng(4)
+    frames = torch.as_tensor(rng.standard_normal(
+        (2, 50, cfg.d_model)) * 0.02, dtype=torch.float32, device="cuda")
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 7)),
+                             device="cuda")
+    dense = prefill_cache_whisper(cfg, params, frames, 2, 64)
+    _, dense = prefill(cfg, params, dense, prompt)
+    paged = _paged_from_dense(cfg, dense, 16)
+    tok, same, steps = prompt[:, -1:], True, 6
+    _reset_all()
+    for _ in range(steps):
+        ld, dense = decode_step(cfg, params, dense, tok)
+        lp, paged = decode_step(cfg, params, paged, tok)
+        same = same and torch.equal(lp, ld)
+        tok = torch.argmax(ld[:, -1:], dim=-1)
+    # a step: each layer's self and cross decode over the dense cache, and
+    # over the paged one its paged self decode and linear cross decode
+    launches = _expect_launches(f"{phase} whisper reduced decode", {
+        "flash_decode": 3 * cfg.n_layers * steps,
+        "flash_decode_paged": cfg.n_layers * steps})
+    kw = dict(max_new_tokens=12, max_len=64, frames=frames)
+    scan = serve.generate(cfg, params, prompt, engine="scan", **kw)
+    eager = serve.generate(cfg, params, prompt, engine="eager", **kw)
+    row = {"config": f"{cfg.name}, float32", "cross_len": dense["cross_len"],
+           "paged_equals_dense": same, "decode_steps": steps,
+           "launches": launches,
+           "scan_equals_eager": bool(torch.equal(scan, eager))}
+    log(phase, small=True, **row)
+    if not (same and row["scan_equals_eager"]):
+        raise AssertionError(f"{phase}: whisper (reduced, f32) identities "
+                             f"fail {row}")
+    return launches
+
+
+def phase_xlstm_whisper():
+    """The last two families at full published width, bf16: (a)
+    xlstm-1.3b at all 48 layers: through ``ScheduleExecutor`` at B 4,
+    seq 256, s = 2, one warm-up and two timed steps, the last of them
+    profiled; ``generate`` at batch 4, 1024-token prompts
+    (four chunks), 64 tokens, and a decode profile; no kernel launched
+    anywhere (the reference has none for xLSTM). (b) whisper-tiny, 4 + 4
+    layers: through the executor with frames (8, 1500, 384), decoder seq
+    448, B 8, s = 2 (24 flash forwards and 12 each of dQ and dK/dV a
+    micro-batch); ``generate`` at batch 4, 16-token prompts, 64 tokens,
+    max_len 448 (12 forwards a prefill, 8 decodes a step). (c) reduced
+    f32: the xLSTM engine == solo with more requests than slots; Whisper
+    paged == dense and scan == eager."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_count
+    t_phase = time.perf_counter()
+    paths = {}
+    rng = np.random.default_rng(8)
+
+    cfg = get_config("xlstm-1.3b")
+    log("xlstm_whisper", config=cfg.name, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads, mlstm_head_dim=(
+            cfg.d_inner // cfg.n_heads), slstm_every=cfg.slstm_every,
+        dtype=cfg.dtype,
+        reduced=f"training seq {XLSTM_SEQ} (one mLSTM chunk) where the "
+                f"other training paths take {SEQ}: the sLSTM's per-token "
+                f"loop; width and depth as published")
+    paths["xlstm-1.3b executor"] = _executor_steps(
+        "xlstm_whisper", "xlstm", cfg, ((None, 3),), batch=BATCH,
+        seq=XLSTM_SEQ, sub_batch=2, profile_last=True)
+    params = init_params(cfg, 8)
+    log("xlstm_whisper", config=cfg.name, params=param_count(params))
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (SERVE_BATCH, SERVE_PROMPT)))
+    paths["xlstm-1.3b generate"] = _generate_run(
+        "xlstm_whisper", cfg, params, prompt, MAX_LEN, SERVE_NEW)
+    _profile_decode(cfg, params, prompt, phase="xlstm_whisper")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("whisper-tiny")
+    log("xlstm_whisper", config=cfg.name, encoder_layers=cfg.encoder_layers,
+        decoder_layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, head_dim=cfg.head_dim,
+        encoder_seq=cfg.encoder_seq, decoder_seq=WHISPER_SEQ,
+        dtype=cfg.dtype, reduced="nothing")
+    paths["whisper-tiny executor"] = _executor_steps(
+        "xlstm_whisper", "whisper", cfg, ((None, 3),), batch=8,
+        seq=WHISPER_SEQ, sub_batch=4)
+    params = init_params(cfg, 9)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (SERVE_BATCH, 16)))
+    frames = torch.as_tensor(rng.standard_normal(
+        (SERVE_BATCH, cfg.encoder_seq, cfg.d_model)) * 0.02,
+        dtype=torch.bfloat16, device="cuda")
+    paths["whisper-tiny generate"] = _generate_run(
+        "xlstm_whisper", cfg, params, prompt, WHISPER_SEQ, SERVE_NEW,
+        frames=frames)
+    del params
+    torch.cuda.empty_cache()
+
+    _engine_small("xlstm-1.3b", phase="xlstm_whisper")
+    paths["whisper-tiny reduced decode"] = _whisper_small("xlstm_whisper")
+    log("xlstm_whisper", seconds=time.perf_counter() - t_phase)
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2824,6 +3152,7 @@ def main() -> int:
     launches["flash_decode_paged"] = phase_engine()["flash_decode_paged"]
     serve_paths = phase_hybrid_serve()
     family_paths = phase_families()
+    last_paths = phase_xlstm_whisper()
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ssd
@@ -2869,11 +3198,15 @@ def main() -> int:
                     if n.get(name)}
         if families:
             kernels[-1]["launches_families"] = families
+        # the xlstm_whisper phase's paths' own counts (every one of them,
+        # xLSTM's zeros included)
+        kernels[-1]["launches_xlstm_whisper"] = {
+            path: n[name] for path, n in last_paths.items()}
         kernels[-1]["head_dims"] = list(head_dims[name])
         if name in DECODE_INSTANCES:
             kernels[-1]["instantiations"] = DECODE_INSTANCES[name]
         for key in ("at_d112", "at_d160", "at_d160_f32", "ring",
-                    "with_state_in_out"):
+                    "with_state_in_out", "at_cross"):
             if key in t:
                 kernels[-1][key] = t[key]
     log("done", seconds=time.perf_counter() - t0)

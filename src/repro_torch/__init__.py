@@ -2,7 +2,8 @@
 
 Mirrors ``repro``'s subpackage and function names so each counterpart is
 easy to find. It carries co-scheduled, gradient-accumulated training of
-the dense, vlm and hybrid families through the schedule executor, with
+every family of the reference (dense, vlm, hybrid, moe, ssm and audio)
+through the schedule executor, with
 its fault recovery (scripted faults, retry, member drop, npz checkpoints
 in the reference's format, restart) and the training driver
 (``launch.train``, ``launch.quickstart``); the calibration of (alpha,

@@ -2,8 +2,7 @@
 
 The fields and ``reduced()`` match the reference field for field, so a
 reduced config here has the same shapes as the reference's reduced config.
-``get_config`` knows the architectures the port runs so far (dense, vlm,
-hybrid and moe); the others raise and name the slice that brings them.
+``get_config`` knows every architecture of the reference.
 """
 from __future__ import annotations
 
@@ -141,22 +140,15 @@ _REGISTRY: Dict[str, str] = {
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
-}
-
-# architectures of the reference that later slices of the port bring
-_LATER: Dict[str, str] = {
-    "xlstm-1.3b": "the remaining-families slice",
-    "whisper-tiny": "the remaining-families slice",
 }
 
 ARCH_NAMES = tuple(sorted(_REGISTRY))
 
 
 def get_config(name: str) -> ArchConfig:
-    if name in _LATER:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet; it comes with {_LATER[name]}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     return importlib.import_module(_REGISTRY[name]).CONFIG

@@ -1,7 +1,8 @@
 """Synthetic LM batches, drawn from the same numpy stream as the
 reference's ``data/synthetic.make_batch``: ``default_rng(seed*1_000_003 +
-step)``, tokens first and ``vision_embeds`` second, so tokens, labels and
-vision embeddings come out identical to the JAX batch."""
+step)``, tokens first, then ``vision_embeds`` (vlm) or ``frames``
+(audio), so tokens, labels and the stubbed frontends' embeddings come
+out identical to the JAX batch."""
 from __future__ import annotations
 
 from typing import Dict
@@ -16,9 +17,10 @@ from repro_torch.device import resolve_device, torch_dtype
 def make_batch(cfg: ArchConfig, batch: int, seq: int, *, step: int = 0,
                seed: int = 0, dtype=None, structured: bool = False,
                device=None) -> Dict[str, torch.Tensor]:
-    """One training batch: tokens (B,S) int64, labels = next token, and
-    ``vision_embeds`` (B, vision_tokens, d_model) for the vlm family
-    (dense, moe and hybrid take tokens only).
+    """One training batch: tokens (B,S) int64, labels = next token,
+    ``vision_embeds`` (B, vision_tokens, d_model) for the vlm family and
+    ``frames`` (B, encoder_seq, d_model), the stubbed audio frontend's
+    output, for the audio family (the others take tokens only).
 
     ``structured=True`` draws deterministic affine sequences
     t_{i+1} = (a*t_i + b) mod V: i.i.d. uniform tokens have an
@@ -26,9 +28,6 @@ def make_batch(cfg: ArchConfig, batch: int, seq: int, *, step: int = 0,
     quickstart) needs learnable structure."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
-    if cfg.family not in ("dense", "vlm", "hybrid", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet")
     rng = np.random.default_rng(seed * 1_000_003 + step)
     if structured:
         a = 5 * (seed % 97) + 3
@@ -50,6 +49,10 @@ def make_batch(cfg: ArchConfig, batch: int, seq: int, *, step: int = 0,
         ve = rng.standard_normal((batch, cfg.vision_tokens, cfg.d_model),
                                  dtype=np.float32) * 0.02
         out["vision_embeds"] = torch.from_numpy(ve).to(dev, dt)
+    if cfg.family == "audio":
+        fr = rng.standard_normal((batch, cfg.encoder_seq, cfg.d_model),
+                                 dtype=np.float32) * 0.02
+        out["frames"] = torch.from_numpy(fr).to(dev, dt)
     return out
 
 

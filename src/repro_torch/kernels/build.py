@@ -32,8 +32,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARIES = {
     "flash_attention": (["flash_attention.cu"], {
         "repro_flash_fwd": [_P] * 5 + [_I] * 8 + [_F, _P],
-        "repro_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _P],
-        "repro_flash_bwd_dkdv": [_P] * 8 + [_I] * 6 + [_F, _P],
+        "repro_flash_bwd_dq": [_P] * 7 + [_I] * 7 + [_F, _P],
+        "repro_flash_bwd_dkdv": [_P] * 8 + [_I] * 7 + [_F, _P],
     }),
     "flash_decode": (["flash_decode.cu"], {
         "repro_flash_decode_workspace": [_I] * 4,

@@ -67,7 +67,7 @@
 // kernel one block per (b*h, kv tile) looping over q tiles. dQ and dK/dV
 // stay two kernels, so no output needs atomics.
 //
-// Numerics follow the reference: masks are kpos < S, causal qpos >= kpos,
+// Numerics follow the reference: masks are kpos < Sk, causal qpos >= kpos,
 // and kpos > qpos - window; accumulation is f32; O, dQ, dK, dV are written
 // in the input type and lse in f32 (0 for a row with no visible key, whose
 // O is 0). The f32 kernels scale q by d**-0.5 before QK^T as the reference
@@ -86,6 +86,14 @@
 // no rescale is taken or skipped by a per-warp decision). So the suffix
 // rows carry the bits of the same rows of a one-shot forward over the
 // whole prompt.
+//
+// All three take sq query rows over sk key rows. Training has sq == sk;
+// Whisper's cross-attention, non-causal, has its sq decoder rows over sk
+// encoder rows (448 over 1500), forward and backward. Each kernel bounds
+// q rows by sq and k rows by sk (Mask, kv_range, q_range), strides q, dO,
+// dQ, lse and delta by sq and K, V, dK and dV by sk; that is the whole of
+// the change for sq != sk: at sq == sk every index and every mask is what
+// it was with one s, so the kernels compute the same bits as before.
 //
 // Plain C interface for ctypes. Every entry returns cudaGetLastError()
 // after its launch (0 on success). Launches go to the caller's stream.
@@ -108,10 +116,12 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 
+// q rows [0, sq) over k rows [0, sk); qp, kp are positions
 struct Mask {
-  int s, causal, window;
+  int sq, sk, causal, window;
+  __device__ __forceinline__ bool row(int qp) const { return qp < sq; }
   __device__ __forceinline__ bool ok(int qp, int kp) const {
-    bool m = kp < s;
+    bool m = kp < sk;
     if (causal) m = m && (qp >= kp);
     if (window > 0) m = m && (kp > qp - window);
     return m;
@@ -146,16 +156,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// kv positions a q tile [q0, q0 + 64) can see: [lo, hi)
-__device__ __forceinline__ void kv_range(int q0, int s, int causal, int window, int& lo, int& hi) {
-  hi = causal ? min(s, q0 + BQ) : s;
+// kv positions a q tile [q0, q0 + 64) can see among sk: [lo, hi)
+__device__ __forceinline__ void kv_range(int q0, int sk, int causal, int window, int& lo, int& hi) {
+  hi = causal ? min(sk, q0 + BQ) : sk;
   lo = window > 0 ? max(0, q0 - window + 1) : 0;
 }
 
-// q positions that can see a kv tile [k0, k0 + 64): [lo, hi)
-__device__ __forceinline__ void q_range(int k0, int s, int causal, int window, int& lo, int& hi) {
+// q positions among sq that can see a kv tile [k0, k0 + 64): [lo, hi)
+__device__ __forceinline__ void q_range(int k0, int sq, int causal, int window, int& lo, int& hi) {
   lo = causal ? k0 : 0;
-  hi = window > 0 ? min(s, k0 + BK - 1 + window) : s;
+  hi = window > 0 ? min(sq, k0 + BK - 1 + window) : sq;
 }
 
 // ------------------------------------------------------------------------
@@ -182,7 +192,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const size_t qbase = (size_t)bh * sq * D, kbase = (size_t)bh * sk * D;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
-  const Mask mask{sk, causal, window};
+  const Mask mask{q_offset + sq, sk, causal, window};
 
   load_tile<T, D>(sQ, q + qbase, q0, sq, scale);
   if (tid < BQ) { sM[tid] = -INFINITY; sL[tid] = 0.f; }
@@ -292,7 +302,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // ------------------------------------------------------------------------
 // backward: shared tile math. Fills sP with P = exp(s - lse) and sDS with
 // dS = P * (dO V^T - delta) for a (q tile, kv tile) pair; masked entries
-// and q rows at or past s are 0.
+// and q rows at or past sq are 0.
 // ------------------------------------------------------------------------
 template <int D>
 __device__ __forceinline__ void p_ds_tile(const float* sQ, const float* sdO, const float* sK,
@@ -326,7 +336,7 @@ __device__ __forceinline__ void p_ds_tile(const float* sQ, const float* sdO, con
     for (int j = 0; j < 4; ++j) {
       const int r = ty + 16 * i, c = tx + 16 * j;
       const int qp = q0 + r;
-      const float p = (qp < mask.s && mask.ok(qp, k0 + c)) ? expf(sc[i][j] - sLse[r]) : 0.f;
+      const float p = (mask.row(qp) && mask.ok(qp, k0 + c)) ? expf(sc[i][j] - sLse[r]) : 0.f;
       sP[r * LS + c] = p;
       sDS[r * LS + c] = p * (dp[i][j] - sDelta[r]);
     }
@@ -337,7 +347,7 @@ __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int s, int causal, int window, float scale) {
+                    int sq, int sk, int causal, int window, float scale) {
   constexpr int LD = D + 1, NJ = D / 16;
   extern __shared__ float sm[];
   float* sQ = sm;
@@ -350,14 +360,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float* sDelta = sLse + BQ;
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const size_t base = (size_t)bh * s * D;
+  const size_t qbase = (size_t)bh * sq * D, kbase = (size_t)bh * sk * D;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const Mask mask{s, causal, window};
+  const Mask mask{sq, sk, causal, window};
 
-  load_tile<T, D>(sQ, q + base, q0, s, scale);
-  load_tile<T, D>(sdO, dout + base, q0, s, 1.f);
-  load_rows(sLse, lse + (size_t)bh * s, q0, s);
-  load_rows(sDelta, delta + (size_t)bh * s, q0, s);
+  load_tile<T, D>(sQ, q + qbase, q0, sq, scale);
+  load_tile<T, D>(sdO, dout + qbase, q0, sq, 1.f);
+  load_rows(sLse, lse + (size_t)bh * sq, q0, sq);
+  load_rows(sDelta, delta + (size_t)bh * sq, q0, sq);
 
   float acc[4][NJ];
 #pragma unroll
@@ -366,12 +376,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
   int lo, hi;
-  kv_range(q0, s, causal, window, lo, hi);
+  kv_range(q0, sk, causal, window, lo, hi);
   for (int kt = lo / BK; kt * BK < hi; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    load_tile<T, D>(sK, k + base, k0, s, 1.f);
-    load_tile<T, D>(sV, v + base, k0, s, 1.f);
+    load_tile<T, D>(sK, k + kbase, k0, sk, 1.f);
+    load_tile<T, D>(sV, v + kbase, k0, sk, 1.f);
     __syncthreads();
     p_ds_tile<D>(sQ, sdO, sK, sV, sLse, sDelta, sP, sDS, q0, k0, mask);
     __syncthreads();
@@ -392,10 +402,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty + 16 * i;
-    if (qp < s) {
+    if (qp < sq) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        dq[base + (size_t)qp * D + tx + 16 * j] = from_f<T>(acc[i][j] * scale);
+        dq[qbase + (size_t)qp * D + tx + 16 * j] = from_f<T>(acc[i][j] * scale);
     }
   }
 }
@@ -405,7 +415,7 @@ __global__ void __launch_bounds__(NT)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                      int s, int causal, int window, float scale) {
+                      int sq, int sk, int causal, int window, float scale) {
   constexpr int LD = D + 1, NJ = D / 16;
   extern __shared__ float sm[];
   float* sQ = sm;
@@ -418,12 +428,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   float* sDelta = sLse + BQ;
 
   const int bh = blockIdx.y, k0 = blockIdx.x * BK;
-  const size_t base = (size_t)bh * s * D;
+  const size_t qbase = (size_t)bh * sq * D, kbase = (size_t)bh * sk * D;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const Mask mask{s, causal, window};
+  const Mask mask{sq, sk, causal, window};
 
-  load_tile<T, D>(sK, k + base, k0, s, 1.f);
-  load_tile<T, D>(sV, v + base, k0, s, 1.f);
+  load_tile<T, D>(sK, k + kbase, k0, sk, 1.f);
+  load_tile<T, D>(sV, v + kbase, k0, sk, 1.f);
 
   // rows are kv positions k0 + ty + 16 i, columns d = tx + 16 j
   float acc_k[4][NJ], acc_v[4][NJ];
@@ -433,14 +443,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     for (int j = 0; j < NJ; ++j) { acc_k[i][j] = 0.f; acc_v[i][j] = 0.f; }
 
   int lo, hi;
-  q_range(k0, s, causal, window, lo, hi);
+  q_range(k0, sq, causal, window, lo, hi);
   for (int qt = lo / BQ; qt * BQ < hi; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();
-    load_tile<T, D>(sQ, q + base, q0, s, scale);
-    load_tile<T, D>(sdO, dout + base, q0, s, 1.f);
-    load_rows(sLse, lse + (size_t)bh * s, q0, s);
-    load_rows(sDelta, delta + (size_t)bh * s, q0, s);
+    load_tile<T, D>(sQ, q + qbase, q0, sq, scale);
+    load_tile<T, D>(sdO, dout + qbase, q0, sq, 1.f);
+    load_rows(sLse, lse + (size_t)bh * sq, q0, sq);
+    load_rows(sDelta, delta + (size_t)bh * sq, q0, sq);
     __syncthreads();
     p_ds_tile<D>(sQ, sdO, sK, sV, sLse, sDelta, sP, sDS, q0, k0, mask);
     __syncthreads();
@@ -469,10 +479,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kp = k0 + ty + 16 * i;
-    if (kp < s) {
+    if (kp < sk) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const size_t at = base + (size_t)kp * D + tx + 16 * j;
+        const size_t at = kbase + (size_t)kp * D + tx + 16 * j;
         dk[at] = from_f<T>(acc_k[i][j]);
         dv[at] = from_f<T>(acc_v[i][j]);
       }
@@ -628,7 +638,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vg = v + (size_t)bh * sk * D;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int wr = threadIdx.x / 32 * 16;  // the warp's first tile row
-  const Mask mask{sk, causal, window};
+  const Mask mask{q_offset + sq, sk, causal, window};
   const float sl2 = scale * LOG2E;
 
   int lo, hi;
@@ -778,8 +788,8 @@ __global__ void __launch_bounds__(NTH)
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int s, int causal,
-                          int window, float scale) {
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+                          int causal, int window, float scale) {
   constexpr int LD = D + 8, KD = D / 16, ND = D / 8, T = 64 * LD, NQ = BQ / 8;
   constexpr bool DO_V = PASS != 2, DO_K = PASS != 1;
   extern __shared__ __align__(16) unsigned char smem_dkdv[];
@@ -791,29 +801,29 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   float* sD = sL + 2 * BQ;                            // delta, two buffers
 
   const int bh = blockIdx.y, k0 = blockIdx.x * BK;
-  const size_t base = (size_t)bh * s * D;
-  const float* lg = lse + (size_t)bh * s;
-  const float* dg = delta + (size_t)bh * s;
+  const size_t qbase = (size_t)bh * sq * D, kbase = (size_t)bh * sk * D;
+  const float* lg = lse + (size_t)bh * sq;
+  const float* dg = delta + (size_t)bh * sq;
   const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int wr = tid / 32 * 16;  // the warp's first kv row
-  const Mask mask{s, causal, window};
+  const Mask mask{sq, sk, causal, window};
   const float sl2 = scale * LOG2E;
 
   int lo, hi;
-  q_range(k0, s, causal, window, lo, hi);
+  q_range(k0, sq, causal, window, lo, hi);
   const int qt0 = lo / BQ, qt1 = (hi + BQ - 1) / BQ;
 
   // q tile qt into buffer b: Q, dO, and (a thread a row) lse or delta
   auto load_q = [&](int b, int qt) {
     const int q0 = qt * BQ, r = q0 + tid % BQ;
-    tile_async<D>(sQ + b * T, q + base, q0, s);
-    tile_async<D>(sO + b * T, dout + base, q0, s);
-    if (tid < BQ) cp_async_4(sL + b * BQ + tid, lg + (r < s ? r : 0), r < s);
-    else cp_async_4(sD + b * BQ + tid - BQ, dg + (r < s ? r : 0), r < s);
+    tile_async<D>(sQ + b * T, q + qbase, q0, sq);
+    tile_async<D>(sO + b * T, dout + qbase, q0, sq);
+    if (tid < BQ) cp_async_4(sL + b * BQ + tid, lg + (r < sq ? r : 0), r < sq);
+    else cp_async_4(sD + b * BQ + tid - BQ, dg + (r < sq ? r : 0), r < sq);
   };
 
-  tile_async<D>(sK, k + base, k0, s);
-  tile_async<D>(sV, v + base, k0, s);
+  tile_async<D>(sK, k + kbase, k0, sk);
+  tile_async<D>(sV, v + kbase, k0, sk);
   if (qt0 < qt1) load_q(0, qt0);
   cp_async_commit();
 
@@ -837,7 +847,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const bf16* tO = sO + buf * T;
     const float* tL = sL + buf * BQ;
     const float* tD = sD + buf * BQ;
-    const bool edge = q0 + BQ > s || k0 + BK > s || (causal && q0 < k0 + BK - 1) ||
+    const bool edge = q0 + BQ > sq || k0 + BK > sk || (causal && q0 < k0 + BK - 1) ||
                       (window > 0 && q0 + BQ - 1 >= k0 + window);
 
     // S^T = K Q^T and dP^T = V dO^T: the warp's 16 kv rows by 64 q columns
@@ -877,7 +887,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float p = exp2f(fmaf(st[n][2 * h + e], sl2, -l2));
-          if (edge && !(qp < s && mask.ok(qp, k0 + wr + g + 8 * h))) p = 0.f;
+          if (edge && !(mask.row(qp) && mask.ok(qp, k0 + wr + g + 8 * h))) p = 0.f;
           st[n][2 * h + e] = p;
           if constexpr (DO_K) dp[n][2 * h + e] = p * (dp[n][2 * h + e] - de);
         }
@@ -914,8 +924,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int kp = k0 + wr + g + 8 * h;
-    if (kp < s) {
-      const size_t row = base + (size_t)kp * D;
+    if (kp < sk) {
+      const size_t row = kbase + (size_t)kp * D;
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
         const int c = n * 8 + 2 * t;
@@ -948,7 +958,8 @@ __global__ void __launch_bounds__(NTH, 2)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int s, int causal, int window, float scale) {
+                        bf16* __restrict__ dq, int sq, int sk, int causal, int window,
+                        float scale) {
   constexpr int LD = D + 8, KD = D / 16, ND = D / 8, T = 64 * LD;
   extern __shared__ __align__(16) unsigned char smem_dq[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_dq);
@@ -958,32 +969,32 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // the q tiles with the most causal work go first
   const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const size_t base = (size_t)bh * s * D;
+  const size_t qbase = (size_t)bh * sq * D, kbase = (size_t)bh * sk * D;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int wr = threadIdx.x / 32 * 16;  // the warp's first tile row
-  const Mask mask{s, causal, window};
+  const Mask mask{sq, sk, causal, window};
   const float sl2 = scale * LOG2E;
 
   int lo, hi;
-  kv_range(q0, s, causal, window, lo, hi);
+  kv_range(q0, sk, causal, window, lo, hi);
   const int kt0 = lo / BK, kt1 = (hi + BK - 1) / BK;
 
-  tile_async<D>(sQ, q + base, q0, s);
-  tile_async<D>(sO, dout + base, q0, s);
+  tile_async<D>(sQ, q + qbase, q0, sq);
+  tile_async<D>(sO, dout + qbase, q0, sq);
   if (kt0 < kt1) {
-    tile_async<D>(sK, k + base, kt0 * BK, s);
-    tile_async<D>(sV, v + base, kt0 * BK, s);
+    tile_async<D>(sK, k + kbase, kt0 * BK, sk);
+    tile_async<D>(sV, v + kbase, kt0 * BK, sk);
   }
   cp_async_commit();
 
-  // rows wr + g and wr + g + 8: lse times log2(e), and delta; 0 past s,
+  // rows wr + g and wr + g + 8: lse times log2(e), and delta; 0 past sq,
   // where Q and dO are zero-filled, so dS = 1 (0 - 0) = 0
   float l2[2], de[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = q0 + wr + g + 8 * i;
-    l2[i] = r < s ? lse[(size_t)bh * s + r] * LOG2E : 0.f;
-    de[i] = r < s ? delta[(size_t)bh * s + r] : 0.f;
+    l2[i] = r < sq ? lse[(size_t)bh * sq + r] * LOG2E : 0.f;
+    de[i] = r < sq ? delta[(size_t)bh * sq + r] : 0.f;
   }
 
   float acc[ND][4];
@@ -997,8 +1008,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();  // tile kt is in for every thread; tile kt - 1's readers are done
     if (kt + 1 < kt1) {
-      tile_async<D>(sK + (buf ^ 1) * T, k + base, k0 + BK, s);
-      tile_async<D>(sV + (buf ^ 1) * T, v + base, k0 + BK, s);
+      tile_async<D>(sK + (buf ^ 1) * T, k + kbase, k0 + BK, sk);
+      tile_async<D>(sV + (buf ^ 1) * T, v + kbase, k0 + BK, sk);
     }
     cp_async_commit();
     const bf16* tK = sK + buf * T;
@@ -1029,8 +1040,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma(dp[2 * np + 1], ao, b[2], b[3]);
       }
     }
-    // the mask, on tiles that cross the diagonal, the window edge or s
-    const bool edge = k0 + BK > s || (causal && k0 + BK - 1 > q0) ||
+    // the mask, on tiles that cross the diagonal, the window edge or sk
+    const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > q0) ||
                       (window > 0 && k0 <= q0 + BQ - 1 - window);
     // P = exp(scale S - lse), dS = P (dP - delta), in the dP registers
 #pragma unroll
@@ -1063,8 +1074,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qp = q0 + wr + g + 8 * i;
-    if (qp < s) {
-      bf16* row = dq + base + (size_t)qp * D;
+    if (qp < sq) {
+      bf16* row = dq + qbase + (size_t)qp * D;
 #pragma unroll
       for (int n = 0; n < ND; ++n)
         *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + 2 * t) =
@@ -1089,48 +1100,48 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh
 
 template <int D>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-           const float* delta, void* dq, int bh, int s, int causal, int window, float scale,
-           cudaStream_t st) {
+           const float* delta, void* dq, int bh, int sq, int sk, int causal, int window,
+           float scale, cudaStream_t st) {
   const size_t smem = dq_smem(D);
   cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((s + BQ - 1) / BQ, bh);
+  dim3 grid((sq + BQ - 1) / BQ, bh);
   flash_bwd_dq_mma_kernel<D><<<grid, NTH, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dq,
-      s, causal, window, scale);
+      sq, sk, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D, int PASS>
 int bwd_dkdv_pass(const void* q, const void* k, const void* v, const void* dout,
-                  const float* lse, const float* delta, void* dk, void* dv, int bh, int s,
-                  int causal, int window, float scale, cudaStream_t st) {
+                  const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
+                  int sk, int causal, int window, float scale, cudaStream_t st) {
   const size_t smem = dkdv_smem(D);
   cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<D, PASS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((s + BK - 1) / BK, bh);
+  dim3 grid((sk + BK - 1) / BK, bh);
   flash_bwd_dkdv_mma_kernel<D, PASS><<<grid, NTH, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dk,
-      (bf16*)dv, s, causal, window, scale);
+      (bf16*)dv, sq, sk, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 // one pass up to D = 128; above it dV, then dK (see the kernel)
 template <int D>
 int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-             const float* delta, void* dk, void* dv, int bh, int s, int causal, int window,
-             float scale, cudaStream_t st) {
+             const float* delta, void* dk, void* dv, int bh, int sq, int sk, int causal,
+             int window, float scale, cudaStream_t st) {
   if constexpr (D <= 128) {
-    return bwd_dkdv_pass<D, 0>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, window, scale,
-                               st);
+    return bwd_dkdv_pass<D, 0>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, window,
+                               scale, st);
   } else {
-    const int e = bwd_dkdv_pass<D, 1>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, window,
-                                      scale, st);
+    const int e = bwd_dkdv_pass<D, 1>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal,
+                                      window, scale, st);
     if (e != 0) return e;
-    return bwd_dkdv_pass<D, 2>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, window, scale,
-                               st);
+    return bwd_dkdv_pass<D, 2>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, window,
+                               scale, st);
   }
 }
 
@@ -1162,36 +1173,37 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh
 
 template <typename T, int D>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-           const float* delta, void* dq, int bh, int s, int causal, int window, float scale,
-           cudaStream_t st) {
+           const float* delta, void* dq, int bh, int sq, int sk, int causal, int window,
+           float scale, cudaStream_t st) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return tc::bwd_dq<D>(q, k, v, dout, lse, delta, dq, bh, s, causal, window, scale, st);
+    return tc::bwd_dq<D>(q, k, v, dout, lse, delta, dq, bh, sq, sk, causal, window, scale, st);
   } else {
     const size_t smem = bwd_smem(D);
     cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, D>, smem);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((s + BQ - 1) / BQ, bh);
+    dim3 grid((sq + BQ - 1) / BQ, bh);
     flash_bwd_dq_kernel<T, D><<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
-                                                      (const T*)dout, lse, delta, (T*)dq, s,
-                                                      causal, window, scale);
+                                                      (const T*)dout, lse, delta, (T*)dq, sq,
+                                                      sk, causal, window, scale);
     return (int)cudaGetLastError();
   }
 }
 
 template <typename T, int D>
 int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-             const float* delta, void* dk, void* dv, int bh, int s, int causal, int window,
-             float scale, cudaStream_t st) {
+             const float* delta, void* dk, void* dv, int bh, int sq, int sk, int causal,
+             int window, float scale, cudaStream_t st) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return tc::bwd_dkdv<D>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, window, scale, st);
+    return tc::bwd_dkdv<D>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, window, scale,
+                           st);
   } else {
     const size_t smem = bwd_smem(D);
     cudaError_t e = allow_smem(flash_bwd_dkdv_kernel<T, D>, smem);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((s + BK - 1) / BK, bh);
+    dim3 grid((sk + BK - 1) / BK, bh);
     flash_bwd_dkdv_kernel<T, D><<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
                                                         (const T*)dout, lse, delta, (T*)dk,
-                                                        (T*)dv, s, causal, window, scale);
+                                                        (T*)dv, sq, sk, causal, window, scale);
     return (int)cudaGetLastError();
   }
 }
@@ -1219,9 +1231,11 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, cons
 
 extern "C" {
 
-// The forward takes sq query rows and sk key rows; query row i sits at
-// absolute position q_offset + i (training: sq == sk, q_offset 0; the
-// suffix prefill: the suffix's rows over the prefix and itself).
+// Each takes sq query rows and sk key rows. In the forward, query row i
+// sits at absolute position q_offset + i (training: sq == sk, q_offset 0;
+// the suffix prefill: the suffix's rows over the prefix and itself); the
+// backward has q_offset 0 (training, and non-causal cross-attention with
+// sq != sk).
 int repro_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                     int sq, int sk, int q_offset, int d, int dtype, int causal, int window,
                     float scale, void* stream) {
@@ -1230,17 +1244,18 @@ int repro_flash_fwd(const void* q, const void* k, const void* v, void* o, void* 
 }
 
 int repro_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, void* dq, int bh, int s, int d,
-                       int dtype, int causal, int window, float scale, void* stream) {
-  DISPATCH(bwd_dq, q, k, v, dout, (const float*)lse, (const float*)delta, dq, bh, s, causal,
-           window, scale, (cudaStream_t)stream)
+                       const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
+                       int d, int dtype, int causal, int window, float scale, void* stream) {
+  DISPATCH(bwd_dq, q, k, v, dout, (const float*)lse, (const float*)delta, dq, bh, sq, sk,
+           causal, window, scale, (cudaStream_t)stream)
 }
 
 int repro_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                         const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
-                         int d, int dtype, int causal, int window, float scale, void* stream) {
-  DISPATCH(bwd_dkdv, q, k, v, dout, (const float*)lse, (const float*)delta, dk, dv, bh, s,
-           causal, window, scale, (cudaStream_t)stream)
+                         const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
+                         int sk, int d, int dtype, int causal, int window, float scale,
+                         void* stream) {
+  DISPATCH(bwd_dkdv, q, k, v, dout, (const float*)lse, (const float*)delta, dk, dv, bh, sq,
+           sk, causal, window, scale, (cudaStream_t)stream)
 }
 
 }  // extern "C"

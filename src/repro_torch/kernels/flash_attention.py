@@ -16,7 +16,10 @@ launches of each wrapper, and only those.
 Replaces the reference's ``kernels/flash_attention.py``
 (``flash_attention_fwd`` / ``flash_attention_bwd`` and their
 ``custom_vjp``). The reference pads S to a block multiple; these kernels
-mask the ragged edge themselves, with the same result.
+mask the ragged edge themselves, with the same result. All three take
+Sq query rows over Sk key rows: training has Sk == Sq, Whisper's
+cross-attention (non-causal) Sq decoder rows over Sk encoder rows, and
+the suffix prefill (forward only) a query offset.
 """
 from __future__ import annotations
 
@@ -39,6 +42,9 @@ def reset_launches() -> None:
 
 
 def _check(name: str, ref: torch.Tensor, **tensors) -> None:
+    """Each of ``tensors`` has ``ref``'s (B, H, S, D) shape, or its
+    (B, H, S) for a row vector (lse, delta, f32), dtype and device, and
+    is contiguous and aligned."""
     if ref.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {ref.dtype} not supported "
                         "(float32 or bfloat16)")
@@ -78,10 +84,21 @@ def _launch(entry: str, counter: str, *args) -> None:
     LAUNCHES[counter] += 1
 
 
-def _common(q, causal, window):
-    b, h, s, d = q.shape
-    return (b * h, s, d, _DTYPES[q.dtype], int(bool(causal)), int(window),
-            d ** -0.5)
+def _check_kv(name: str, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+    """k and v (k's shape) against q: the same B, H and D, dtype and
+    device; any number of rows."""
+    _check(name, k, k=k, v=v)
+    if (k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]
+            or k.dtype != q.dtype or k.device != q.device):
+        raise ValueError(f"{name}: k {tuple(k.shape)} {k.dtype} does not "
+                         f"match q {tuple(q.shape)} {q.dtype}")
+
+
+def _common(q, k, causal, window):
+    b, h, sq, d = q.shape
+    return (b * h, sq, k.shape[2], d, _DTYPES[q.dtype], int(bool(causal)),
+            int(window), d ** -0.5)
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, q_offset=0
@@ -94,12 +111,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, q_offset=0
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
     _check("flash_attention_fwd", q, q=q)
-    _check("flash_attention_fwd", k, k=k, v=v)
-    if (k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]
-            or k.dtype != q.dtype or k.device != q.device):
-        raise ValueError(f"flash_attention_fwd: k {tuple(k.shape)} "
-                         f"{k.dtype} does not match q {tuple(q.shape)} "
-                         f"{q.dtype}")
+    _check_kv("flash_attention_fwd", q, k, v)
     if q_offset < 0:
         raise ValueError(f"flash_attention_fwd: q_offset {q_offset} < 0")
     b, h, sq, d = q.shape
@@ -114,33 +126,35 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, q_offset=0
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
                            window=0) -> torch.Tensor:
-    """dQ from the recomputed P = exp(s - lse) and delta = rowsum(dO*O)."""
+    """dQ from the recomputed P = exp(s - lse) and delta = rowsum(dO*O).
+    q, dO: (B, H, Sq, D); k, v: (B, H, Sk, D); lse, delta: (B, H, Sq)."""
     if not _route(q):
         return attention_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
                                     window=window)
-    _check("flash_attention_bwd_dq", q, q=q, k=k, v=v, do=do, lse=lse,
-           delta=delta)
+    _check("flash_attention_bwd_dq", q, q=q, do=do, lse=lse, delta=delta)
+    _check_kv("flash_attention_bwd_dq", q, k, v)
     dq = torch.empty_like(q)
     _launch("repro_flash_bwd_dq", "flash_bwd_dq", q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), *_common(q, causal, window))
+            delta.data_ptr(), dq.data_ptr(), *_common(q, k, causal, window))
     return dq
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal=True,
                              window=0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dK, dV from the same recompute, looping over q tiles."""
+    """dK, dV (B, H, Sk, D) from the same recompute, looping over q
+    tiles."""
     if not _route(q):
         return attention_bwd_dkdv_ref(q, k, v, do, lse, delta,
                                       causal=causal, window=window)
-    _check("flash_attention_bwd_dkdv", q, q=q, k=k, v=v, do=do, lse=lse,
-           delta=delta)
+    _check("flash_attention_bwd_dkdv", q, q=q, do=do, lse=lse, delta=delta)
+    _check_kv("flash_attention_bwd_dkdv", q, k, v)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("repro_flash_bwd_dkdv", "flash_bwd_dkdv", q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_common(q, causal, window))
+            *_common(q, k, causal, window))
     return dk, dv
 
 
@@ -169,5 +183,6 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0) -> torch.Tensor:
-    """Trainable flash attention in (B, H, S, D) layout, any S."""
+    """Trainable flash attention in (B, H, S, D) layout: q (B, H, Sq, D)
+    over k/v (B, H, Sk, D), any Sq and Sk; query row i at position i."""
     return FlashAttention.apply(q, k, v, causal, window)

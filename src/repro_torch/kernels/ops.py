@@ -8,10 +8,11 @@ reference's block sizes and its
 autotuned routing (``autotune.DEFAULTS``, ``_resolve``) are TPU choices,
 and autotuning is a later slice.
 
-Training takes ``flash_attention`` and ``ssd``; serving takes
-``flash_attention`` for the prefill (also at a query offset), the two
-decode entries (head_dim 64, 112, 128 or 160; the linear one also
-serves a sliding window's ring buffer) and, for the hybrid's Mamba2
+Training takes ``flash_attention`` (Whisper's cross-attention with
+Sk != Sq, non-causal) and ``ssd``; serving takes ``flash_attention`` for
+the prefill (also at a query offset), the two decode entries (head_dim
+64, 112, 128 or 160; the linear one also serves a sliding window's ring
+buffer and Whisper's cross-attention decode) and, for the hybrid's Mamba2
 layers, ``ssd_prefill``, which continues a cached SSM state over the
 prompt and returns the state decode goes on from."""
 from __future__ import annotations
@@ -25,19 +26,21 @@ from . import ssd as _ssd
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """q: (B, Sq, H, D), k/v: (B, Sk, H, D) (model layout) -> (B, Sq, H,
-    D); any sequence length. Query row i sits at absolute position
-    ``q_offset + i``. Differentiable in q, k, v when Sk == Sq and
-    ``q_offset`` is 0 (training, one-shot prefill); otherwise (the suffix
-    prefill over a filled cache) forward only."""
+    D); any sequence lengths. Query row i sits at absolute position
+    ``q_offset + i``. Differentiable in q, k, v when ``q_offset`` is 0
+    and either Sk == Sq (training, one-shot prefill) or the attention is
+    non-causal (Whisper's cross-attention, decoder rows over encoder
+    rows); otherwise (the suffix prefill over a filled cache, causal
+    attention with Sk != Sq) forward only."""
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    if q_offset == 0 and k.shape[1] == q.shape[1]:
+    if q_offset == 0 and (k.shape[1] == q.shape[1] or not causal):
         out = _flash.flash_attention(qt, kt, vt, causal=causal,
                                      window=window)
     else:
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
-            raise ValueError("flash_attention with q_offset or Sk != Sq "
-                             "is forward only")
+            raise ValueError("flash_attention with q_offset, or causal "
+                             "with Sk != Sq, is forward only")
         out, _ = _flash.flash_attention_fwd(qt, kt, vt, causal=causal,
                                             window=window,
                                             q_offset=q_offset)

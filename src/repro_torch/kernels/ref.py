@@ -59,16 +59,17 @@ def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
 
 
 def _p_ds(q, k, v, do, lse, delta, causal, window):
-    """P = exp(s - lse) (masked entries 0) and dS = P * (dO V^T - delta)."""
+    """P = exp(s - lse) (masked entries 0) and dS = P * (dO V^T - delta),
+    (B, H, Sq, Sk): q and dO have Sq rows, k and v Sk."""
     mask = score_mask(q.shape[2], causal=causal, window=window,
-                      device=q.device)
+                      device=q.device, sk=k.shape[2])
     p = torch.exp(_scores(q, k, mask) - lse[..., None])
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
     return p, p * (dp - delta[..., None])
 
 
 def attention_bwd_dq_ref(q, k, v, do, lse, delta, *, causal=True, window=0):
-    """dQ = scale * dS K, in q.dtype."""
+    """dQ = scale * dS K, (B, H, Sq, D) in q.dtype."""
     _, ds = _p_ds(q, k, v, do, lse, delta, causal, window)
     scale = q.shape[-1] ** -0.5
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
@@ -77,7 +78,7 @@ def attention_bwd_dq_ref(q, k, v, do, lse, delta, *, causal=True, window=0):
 
 def attention_bwd_dkdv_ref(q, k, v, do, lse, delta, *, causal=True,
                            window=0):
-    """dK = scale * dS^T Q and dV = P^T dO, in k/v dtype."""
+    """dK = scale * dS^T Q and dV = P^T dO, (B, H, Sk, D) in k/v dtype."""
     p, ds = _p_ds(q, k, v, do, lse, delta, causal, window)
     scale = q.shape[-1] ** -0.5
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale

@@ -20,10 +20,14 @@ overwrites whole. The hybrid's Mamba2 conv windows and SSM states are
 per slot in both layouts: an idle slot's keep stepping, and an admission
 overwrites them with its own prefill's.
 
-The dense, vlm, moe and hybrid families (the port's model). A sliding
-window's ring buffer serves in the dense mode; paging needs the linear
-layout. Prefix sharing for dense and vlm, and for moe under the dense
-dispatch, as in the reference. Degraded mode as in the
+The dense, vlm, moe, hybrid and ssm families; an encoder-decoder
+(audio) is served by ``serve.generate`` and refused here, as in the
+reference. The ssm family's mLSTM and sLSTM states are per slot, like
+the hybrid's: an admission overwrites them with its own prefill's
+(the sLSTM's ``n`` with the prefill's, never 0). A sliding window's ring
+buffer serves in the dense mode; paging needs the linear layout, which
+the ssm family does not have. Prefix sharing for dense and vlm, and for
+moe under the dense dispatch, as in the reference. Degraded mode as in the
 reference: per-request deadlines with timeout shedding, admission
 brown-out, and bounded retry of transient segment faults
 (``fault_injector``, ``retry_policy``), all off by default.
@@ -44,7 +48,7 @@ from repro_torch.launch.prefix import PrefixTrie
 from repro_torch.launch.serve import (_device, _make_scan_generate,
                                       prefill_extend_cached)
 from repro_torch.models import init_cache, init_paged_cache, prefill
-from repro_torch.models.model import _require_ported, has_linear_kv
+from repro_torch.models.model import has_linear_kv
 from repro_torch.tree import flatten
 from repro_torch.util.retry import RetryPolicy, retry_call
 
@@ -98,7 +102,9 @@ class DecodeEngine:
                  fault_injector: Optional[ScriptedFaults] = None,
                  retry_policy: Optional[RetryPolicy] = None,
                  retry_seed: int = 0, sleep=time.sleep):
-        _require_ported(cfg)
+        if cfg.is_encoder_decoder:
+            raise ValueError(f"{cfg.name} is an encoder-decoder; it is "
+                             f"served by serve.generate, not the engine")
         if prefix_share:
             if not paged:
                 raise ValueError("prefix_share requires paged=True")

@@ -10,9 +10,12 @@ token to the host as it is made. Capturing the loop in a CUDA graph is
 later work.
 
 Sampling takes an explicit ``torch.Generator`` on the logits' device;
-greedy decoding is what is held against the reference.
+greedy decoding is what is held against the reference. An
+encoder-decoder (whisper-tiny) takes the stubbed audio frontend's
+frames: the encoder runs once and fills each layer's cross K/V
+(``prefill_cache_whisper``) before the prompt's prefill.
 
-    python -m repro_torch.launch.serve --arch minicpm-2b --reduced \\
+    python -m repro_torch.launch.serve --arch xlstm-1.3b --reduced \\
         --device cpu --tokens 16
 """
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.models import (decode_step, init_cache, init_params,
                                 prefill, prefill_extend)
-from repro_torch.models.model import has_linear_kv
+from repro_torch.models.model import has_linear_kv, prefill_cache_whisper
 
 
 def _device(params) -> torch.device:
@@ -83,8 +86,8 @@ def _make_scan_generate(cfg, steps: int, greedy: bool):
 @torch.no_grad()
 def generate(cfg, params, prompt, *, max_new_tokens: int = 16,
              max_len: int = 256, greedy: bool = True, generator=None,
-             engine: str = "scan", prefill_mode: str = "one_shot"
-             ) -> torch.Tensor:
+             engine: str = "scan", prefill_mode: str = "one_shot",
+             frames=None) -> torch.Tensor:
     """Generate ``max_new_tokens`` tokens for a (B, S) prompt batch on the
     parameters' device. Returns the tokens, (B, max_new_tokens) int64 on
     the CPU.
@@ -97,7 +100,8 @@ def generate(cfg, params, prompt, *, max_new_tokens: int = 16,
     first token is the prefill's argmax, as in the reference; later ones
     are sampled from ``generator`` unless ``greedy``. A MoE layer's
     einsum and scatter dispatches route a prompt in groups of
-    min(256, S) tokens, so S must be a multiple of its group."""
+    min(256, S) tokens, so S must be a multiple of its group. An
+    encoder-decoder needs ``frames`` (B, Senc, d_model)."""
     dev = _device(params)
     prompt = torch.as_tensor(prompt, device=dev).long()
     b, plen = prompt.shape
@@ -107,7 +111,14 @@ def generate(cfg, params, prompt, *, max_new_tokens: int = 16,
     if generator is None and not greedy:
         generator = torch.Generator(device=dev)
         generator.manual_seed(0)
-    cache = init_cache(cfg, b, max_len, device=dev)
+    if cfg.is_encoder_decoder:
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: "
+                             f"generate needs frames")
+        cache = prefill_cache_whisper(
+            cfg, params, torch.as_tensor(frames, device=dev), b, max_len)
+    else:
+        cache = init_cache(cfg, b, max_len, device=dev)
     if prefill_mode == "one_shot":
         logits, cache = prefill_one_shot(cfg, params, prompt, cache)
     elif prefill_mode == "per_token":
@@ -132,7 +143,7 @@ def generate(cfg, params, prompt, *, max_new_tokens: int = 16,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--arch", default="minicpm-2b", choices=ARCH_NAMES)
+    ap.add_argument("--arch", default="xlstm-1.3b", choices=ARCH_NAMES)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain path")
@@ -152,9 +163,15 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     prompt = torch.as_tensor(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)))
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = torch.as_tensor(rng.standard_normal(
+            (args.batch, cfg.encoder_seq, cfg.d_model)) * 0.02,
+            dtype=torch.float32)
     t0 = time.perf_counter()
     toks = generate(cfg, params, prompt, max_new_tokens=args.tokens,
-                    engine=args.engine, prefill_mode=args.prefill)
+                    engine=args.engine, prefill_mode=args.prefill,
+                    frames=frames)
     dt = time.perf_counter() - t0
     print(f"arch={cfg.name} device={_device(params)} engine={args.engine} "
           f"generated {tuple(toks.shape)} in {dt:.2f}s "

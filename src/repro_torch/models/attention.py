@@ -11,6 +11,11 @@ plain version other than the device. Decode caches are linear (row t
 holds position t) or, with a sliding window, a ring buffer (position t
 in row t % rows), as in the reference; both decode through the same
 flash-decode kernel (``attention_decode`` says why the ring can).
+Whisper's cross-attention (``cross_attention``, non-causal, decoder
+queries over encoder rows, Sk != Sq) takes the flash forward, and its
+backward in training; its decode over the cached encoder rows the linear
+flash-decode kernel at lengths ``cross_len``. The reference computes it
+with plain softmax attention, which reaches no Pallas kernel.
 
 Caches are written in place: a decode step writes one row per example
 into the tensors it is given, and a prefill writes the prompt's rows.
@@ -203,3 +208,30 @@ def _scatter_rows(cache: torch.Tensor, new: torch.Tensor,
     cache[ar, row] = torch.where(inside[:, None, None],
                                  new[:, 0].to(cache.dtype), cache[ar, row])
     return cache
+
+
+# ---------------------------------------------------------------------- #
+# cross-attention (Whisper's decoder over the encoder's output)
+# ---------------------------------------------------------------------- #
+def cross_kv(p, enc, *, n_heads, head_dim):
+    """The encoder rows' K and V: enc (B, Se, D) -> two (B, Se, H, Dh)."""
+    b, se, _ = enc.shape
+    return (linear(p["wk"], enc).reshape(b, se, n_heads, head_dim),
+            linear(p["wv"], enc).reshape(b, se, n_heads, head_dim))
+
+
+def cross_attention(p, x, k, v, *, n_heads, head_dim):
+    """x: (B, S, D) decoder rows attending, non-causally, every encoder
+    row of k/v (B, Se, H, Dh): training (differentiable in x, k and v)
+    and prefill over the cached rows."""
+    b, s, _ = x.shape
+    q = linear(p["wq"], x).reshape(b, s, n_heads, head_dim)
+    return _out(p, ops.flash_attention(q, k, v, causal=False))
+
+
+def cross_attention_decode(p, x, k, v, lengths, *, n_heads, head_dim):
+    """One decoder token x (B, 1, D) over the cached encoder rows k/v
+    (B, Se, H, Dh), the first ``lengths`` (B,) of them valid."""
+    b = x.shape[0]
+    q = linear(p["wq"], x).reshape(b, 1, n_heads, head_dim)
+    return _out(p, ops.flash_decode(q, k, v, lengths))

@@ -1,8 +1,10 @@
-"""Shared layers: RMS norm, linear, tied embedding, RoPE / M-RoPE and the
-SwiGLU MLP. Parameters are plain dicts of tensors in the reference's
-layout (``models/layers.py``): linear weights are (d_in, d_out)."""
+"""Shared layers: RMS norm, linear, tied embedding, RoPE / M-RoPE,
+sinusoidal positions, the SwiGLU MLP and the GELU MLP. Parameters are
+plain dicts of tensors in the reference's layout (``models/layers.py``):
+linear weights are (d_in, d_out)."""
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -93,6 +95,37 @@ def mrope_cos_sin(positions3: torch.Tensor, head_dim: int, theta: float,
     return torch.cos(ang), torch.sin(ang)
 
 
+def sinusoidal_positions(positions: torch.Tensor, d_model: int
+                         ) -> torch.Tensor:
+    """(..., S) int positions -> (..., S, d_model) f32 sinusoidal
+    embeddings (Whisper's): sin of the first half of the frequencies,
+    then cos."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def swiglu(p, x):
     h = F.silu(linear(p["gate"], x)) * linear(p["up"], x)
     return linear(p["down"], h)
+
+
+def gelu_mlp_init(gen, d, d_ff, *, lead=(), dtype, device):
+    """Up and down projections, both with a bias (zeros), each with
+    leading dims ``lead``."""
+    lead = tuple(lead)
+
+    def lin(d_in, d_out):
+        return {"w": normal_init(gen, lead + (d_in, d_out), dtype, device),
+                "b": torch.zeros(lead + (d_out,), dtype=dtype,
+                                 device=device)}
+    return {"up": lin(d, d_ff), "down": lin(d_ff, d)}
+
+
+def gelu_mlp(p, x):
+    """``jax.nn.gelu``'s default is the tanh approximation, so the port
+    takes it too, not the exact erf form."""
+    return linear(p["down"], F.gelu(linear(p["up"], x), approximate="tanh"))

@@ -56,14 +56,16 @@ def unit_slice(units, u: int):
 
 def grad_leaves(params, layered=()) -> tuple:
     """Fresh leaf tensors for one backward pass, sharing storage with
-    ``params``: every non-unit tensor once, and every stacked unit tensor
-    as one leaf per unit, or, under a unit subtree named in ``layered``
-    (whose tensors stack the unit's layers a second time), one leaf per
-    (unit, layer). Returns (split tree for ``forward``, list of (flat
-    key, index or None, leaf)); the index is (unit,) or (unit, layer).
-    Taking the gradient of such leaves avoids the full-size zero-padded
-    gradient that slicing a stacked leaf would build once per slice in
-    the backward."""
+    ``params``: every tensor outside a unit stack once, and every tensor
+    of a unit stack (a subtree named ``units``: the model's, and an
+    encoder-decoder's ``encoder/units``, each split by its own leading
+    dimension) as one leaf per unit, or, under a subtree of the model's
+    units named in ``layered`` (whose tensors stack the unit's layers a
+    second time), one leaf per (unit, layer). Returns (split tree for
+    ``forward``, list of (flat key, index or None, leaf)); the index is
+    (unit,) or (unit, layer). Taking the gradient of such leaves avoids
+    the full-size zero-padded gradient that slicing a stacked leaf would
+    build once per slice in the backward."""
     slots = []
 
     def leaf(t, key, index=None):
@@ -71,31 +73,36 @@ def grad_leaves(params, layered=()) -> tuple:
         slots.append((key, index, x))
         return x
 
-    def unit(u):
+    def unit(units, prefix, u, layered):
         out = {}
-        for sub in sorted(params["units"]):
-            flat = flatten(params["units"][sub], f"units/{sub}/")
+        for sub in sorted(units):
+            flat = flatten(units[sub], f"{prefix}{sub}/")
             if sub in layered:
                 n_layers = next(iter(flat.values())).shape[1]
-                out[sub] = [unflatten({k[len(f"units/{sub}/"):]:
+                out[sub] = [unflatten({k[len(f"{prefix}{sub}/"):]:
                                        leaf(t[u, i], k, (u, i))
                                        for k, t in flat.items()})
                             for i in range(n_layers)]
             else:
-                out.update(unflatten({k[len("units/"):]:
-                                      leaf(t[u], k, (u,))
+                out.update(unflatten({k[len(prefix):]: leaf(t[u], k, (u,))
                                       for k, t in flat.items()}))
         return out
 
-    split: Dict[str, Any] = {}
-    for top in sorted(params):
-        if top == "units":
-            n = next(iter(flatten(params["units"]).values())).shape[0]
-            split["units"] = [unit(u) for u in range(n)]
-        else:
-            sub = flatten({top: params[top]})
-            split.update(unflatten({k: leaf(t, k) for k, t in sub.items()}))
-    return split, slots
+    def split_tree(tree, prefix, layered):
+        out: Dict[str, Any] = {}
+        for key in sorted(tree):
+            val, path = tree[key], prefix + key
+            if key == "units":
+                n = next(iter(flatten(val).values())).shape[0]
+                out[key] = [unit(val, path + "/", u, layered)
+                            for u in range(n)]
+            elif isinstance(val, dict):
+                out[key] = split_tree(val, path + "/", ())
+            else:
+                out[key] = leaf(val, path)
+        return out
+
+    return split_tree(params, "", layered), slots
 
 
 def zeros_like_tree(tree, dtype: torch.dtype):

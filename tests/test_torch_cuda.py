@@ -81,6 +81,59 @@ def test_kernels_match_plain(cuda, shape, dtype, causal, window, tol):
         assert _err(got, want) <= tol
 
 
+# Whisper's cross-attention: decoder rows over encoder rows (Sk != Sq),
+# non-causal, forward and backward; a ragged Sq and one with Sq > Sk
+@pytest.mark.parametrize("b,h,sq,sk,dtype,tol", [
+    (2, 6, 448, 1500, torch.bfloat16, 2 ** -7),
+    (2, 6, 448, 1500, torch.float32, 1e-5),
+    (2, 3, 37, 1500, torch.float32, 1e-5),
+    (2, 3, 37, 1500, torch.bfloat16, 2 ** -7),
+    (1, 4, 300, 130, torch.float32, 1e-5),
+    (1, 4, 300, 130, torch.bfloat16, 2 ** -7),
+])
+def test_rectangular_kernels_match_plain(cuda, b, h, sq, sk, dtype, tol):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+
+    def rand(s):
+        return torch.randn((b, h, s, 64), generator=gen,
+                           device=cuda).to(dtype)
+    q, do, k, v = rand(sq), rand(sq), rand(sk), rand(sk)
+    kw = dict(causal=False)
+    fa.reset_launches()
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+    o_r, lse_r = ref.attention_ref(q, k, v, **kw)
+    dq_r = ref.attention_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+    dk_r, dv_r = ref.attention_bwd_dkdv_ref(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkdv": 1}
+    assert dk.shape == k.shape and dq.shape == q.shape
+    for got, want in ((o, o_r), (lse, lse_r), (dq, dq_r), (dk, dk_r),
+                      (dv, dv_r)):
+        assert _err(got, want) <= tol
+
+
+def test_cross_decode_matches_plain(cuda):
+    """One decoder token over 1500 cached encoder rows, all valid and a
+    prefix of them, at Whisper's 6 heads of 64."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    for dtype, tol in ((torch.bfloat16, 2 ** -7), (torch.float32, 1e-5)):
+        q = torch.randn((4, 1, 6, 64), generator=gen, device=cuda).to(dtype)
+        k, v = (torch.randn((4, 1500, 6, 64), generator=gen, device=cuda)
+                .to(dtype) for _ in range(2))
+        for n in (1500, 1024):
+            lengths = torch.full((4,), n, dtype=torch.int32, device=cuda)
+            got = fd.flash_decode(q, k, v, lengths)
+            want = ref.flash_decode_ref(q, k, v, lengths)
+            torch.cuda.synchronize()
+            assert _err(got, want) <= tol
+
+
 # the bf16 dQ kernel (tensor cores) against the plain backward at each
 # head_dim, ragged, non-causal and windowed; and the whole function
 # (kernels, delta in torch) against the same composition of plain

@@ -232,9 +232,11 @@ def test_decode_plain_version_at_head_dim_160_matches_reference(h, h_kv):
 
 def test_head_dims_the_kernels_take():
     """160 is among the head dims both wrappers take; the models of the
-    port need no other."""
+    port that attend need no other (xlstm-1.3b, the ssm family, runs no
+    attention: its head_dim field, 512, sizes no kernel call)."""
     from repro_torch.configs import ARCH_NAMES
     from repro_torch.kernels import flash_decode as fd
     assert fa.HEAD_DIMS == fd.HEAD_DIMS == (64, 112, 128, 160)
     for name in ARCH_NAMES:
-        assert get_config(name).head_dim in fa.HEAD_DIMS, name
+        if get_config(name).family != "ssm":
+            assert get_config(name).head_dim in fa.HEAD_DIMS, name

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``repro_torch``,
-``chip_smoke``, ``ssd_variants`` and ``flash_variants`` loads neither JAX
-nor the reference package."""
+``chip_smoke``, ``ssd_variants``, ``flash_variants`` and ``flash_bitwise``
+loads neither JAX nor the reference package."""
 import os
 import subprocess
 import sys
@@ -18,6 +18,7 @@ for name in names:
 import chip_smoke
 import ssd_variants
 import flash_variants
+import flash_bitwise
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                 or m == "repro" or m.startswith("repro."))
@@ -31,7 +32,8 @@ for name in ("kernels.flash_attention", "kernels.flash_decode",
              "util.retry", "launch.train", "launch.quickstart",
              "models.moe", "configs.glm4_9b", "configs.stablelm_12b",
              "configs.llama3_405b", "configs.granite_moe",
-             "configs.llama4_maverick"):
+             "configs.llama4_maverick", "models.xlstm",
+             "configs.xlstm_1_3b", "configs.whisper_tiny"):
     assert "repro_torch." + name in names, name
 """
 
@@ -52,7 +54,8 @@ def test_no_source_of_the_port_names_jax_or_the_reference():
     bad = []
     paths = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "ssd_variants.py"),
-             os.path.join(ROOT, "flash_variants.py")]
+             os.path.join(ROOT, "flash_variants.py"),
+             os.path.join(ROOT, "flash_bitwise.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
     for path in paths:

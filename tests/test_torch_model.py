@@ -37,7 +37,8 @@ def _configs(name):
 
 @pytest.mark.parametrize("name", MODELS + [
     "zamba2-7b", "glm4-9b", "stablelm-12b", "llama3-405b",
-    "granite-moe-3b-a800m", "llama4-maverick-400b-a17b"])
+    "granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "xlstm-1.3b",
+    "whisper-tiny"])
 def test_configs_match_reference(name):
     assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
         jax_config(name))
@@ -46,12 +47,24 @@ def test_configs_match_reference(name):
 
 
 def test_unported_families_name_their_slice():
-    with pytest.raises(NotImplementedError, match="remaining-families"):
-        get_config("xlstm-1.3b")
+    """Every architecture of the reference is ported; what the port
+    still refuses is refused by name: an unknown arch or family, and the
+    scheduler's decision paths other than the scalar one."""
+    from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
+    from repro_torch.configs import ARCH_NAMES
+    from repro_torch.core.schedulers import SJF_BSBF
+    assert ARCH_NAMES == JAX_ARCH_NAMES
+    for name in JAX_ARCH_NAMES:
+        assert get_config(name).name == name
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-5")
     cfg = dataclasses.replace(get_config("minicpm-2b").reduced(),
-                              family="ssm")
-    with pytest.raises(NotImplementedError, match="remaining-families"):
+                              family="retnet")
+    with pytest.raises(ValueError, match="unknown family 'retnet'"):
         init_params(cfg, 0, device="cpu")
+    for decision in ("grid", "batched"):
+        with pytest.raises(ValueError, match="not ported"):
+            SJF_BSBF(decision=decision)
 
 
 @pytest.mark.parametrize("name", MODELS)
