@@ -7,7 +7,8 @@ Drives the port's paths (``src/repro_torch``) at full published width:
 co-scheduled, gradient-accumulated training of minicpm-2b and
 qwen2-vl-2b with attention on the hand-written CUDA flash kernels; the
 calibration of (alpha, beta, xi) from those steps and the replay of an
-SJF-BSBF schedule simulated on them through the executor; the
+SJF-BSBF schedule simulated on them through the executor, and every
+policy compared on them, on the paper's traces and at 1024 GPUs; the
 executor's fault recovery (checkpoints, restart, retry, member drop)
 and the training driver; training of the hybrid zamba2-7b (36 of its
 81 layers) on the CUDA Mamba2 SSD chunk-scan kernels and the flash kernels at head_dim 112;
@@ -93,6 +94,19 @@ its own line and any failure exits non-zero:
               ``job.iters`` steps, launch counts exact, and every job's
               final parameters bitwise its solo re-run's. Prints each
               job's predicted and measured seconds and their error.
+6b. policies - on the host: all seven policies (FIFO, SJF, SRSF,
+              Tiresias, Pollux-like, SJF-FFS, SJF-BSBF) (a) on the
+              profiles and xi that phase 5 measured on this card (the
+              calibrated mode of ``table2_physical``: 30 jobs on 2 x 2
+              GPUs), (b) on the paper's physical trace (4 x 4 GPUs) and
+              its 240- and 480-job traces (16 x 4), (c) SJF and SJF-BSBF
+              on a Philly-shaped trace of 20000 jobs at 1024 GPUs.
+              Prints avg JCT, queueing, makespan, preemptions and
+              seconds per policy, the paper's two headline checks (not
+              gated) and, for (c), events per second per decision path.
+              Required: every job finishes, a second run gives the same
+              log, heap == scan (rel 1e-6), and SJF-BSBF's grid ==
+              batched == scalar logs.
 7. recovery - minicpm-2b at 4 of 40 layers (qwen2-vl-2b at 4 of 28),
               full width, bf16, seq 2048, B = 4, checkpoints in a
               temporary directory removed at the end: (a) 6 steps
@@ -1730,6 +1744,156 @@ def phase_replay(iters: int = CAL_ITERS, iters_a: int = 24):
 
 
 # ---------------------------------------------------------------------- #
+# phase 6b: every policy on the card's profiles, the paper's traces and a
+# datacenter
+# ---------------------------------------------------------------------- #
+DECISIONS = ("scalar", "grid", "batched")
+# the top point of the reference's ``benchmarks/sim_scale.py`` ladder
+# (LADDER_JOBS[1024]): 1024 GPUs as 128 servers of 8
+PHILLY_GPUS, PHILLY_JOBS, PHILLY_PER_SERVER = 1024, 20000, 8
+
+
+def _policy_row(res, seconds) -> dict:
+    s = res.summary()
+    return {"avg_jct": s["avg_jct"], "avg_queue": s["avg_queue"],
+            "makespan": s["makespan"], "avg_jct_large": s["avg_jct_large"],
+            "avg_jct_small": s["avg_jct_small"],
+            "preemptions": sum(j.preemptions for j in res.jobs),
+            "events": res.events, "seconds": seconds}
+
+
+def _all_finished(phase: str, what: str, res, n_jobs: int) -> None:
+    done = [j for j in res.jobs if j.finish_time is not None]
+    if len(res.jobs) != n_jobs or len(done) != n_jobs:
+        raise AssertionError(f"{phase}: {what}: {len(done)} of {n_jobs} "
+                             "jobs finished")
+
+
+def _same_log(phase: str, what: str, log, want) -> None:
+    if log != want:
+        first = next((i for i, (a, b) in enumerate(zip(log, want))
+                      if a != b), min(len(log), len(want)))
+        raise AssertionError(
+            f"{phase}: {what}: logs part at record {first} "
+            f"({log[first:first + 1]} vs {want[first:first + 1]})")
+
+
+def _heap_matches_scan(phase: str, what: str, heap, scan) -> None:
+    """The reference's own yardstick for its two engines: the same
+    records in the same order, times and finish times within rel 1e-6
+    (the scan engine accrues every job at every event)."""
+    (hsim, hres), (ssim, sres) = heap, scan
+    if ([e[1:] for e in hsim.log] != [e[1:] for e in ssim.log]
+            or hres.events != sres.events):
+        raise AssertionError(f"{phase}: {what}: heap and scan records")
+    for a, b in [(e[0], f[0]) for e, f in zip(hsim.log, ssim.log)] + [
+            (j.finish_time, ssim.jobs[j.jid].finish_time)
+            for j in hres.jobs]:
+        if abs(a - b) > 1e-6 * max(abs(a), abs(b)):
+            raise AssertionError(f"{phase}: {what}: heap {a} vs scan {b}")
+
+
+def phase_policies():
+    """The paper's comparison of all seven policies, on the host: (a) the
+    calibrated mode of ``table2_physical`` over the profiles and xi that
+    the calibrate phase measured on this card; (b) the paper's traces
+    (Table II's physical trace, Tables III-IV's 240 and 480 jobs) under
+    its interference model; (c) a Philly-shaped trace at 1024 GPUs.
+    Gated: every job finishes, a second run gives the same log, heap ==
+    scan, SJF-BSBF's grid == batched == scalar."""
+    import copy
+    from repro_torch.core import (ClusterState, Simulator, load_artifact,
+                                  make_scheduler, paper_interference_model,
+                                  philly_trace, physical_trace,
+                                  simulation_trace)
+    from repro_torch.launch import cluster_scheduling as cs
+    from repro_torch.launch.calibrate import CALIBRATION_PATH
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+
+    # (a) Table II on the card's own calibration
+    cal = load_artifact(CALIBRATION_PATH)
+    log("policies", part="table2-calibrated",
+        artifact=os.path.relpath(CALIBRATION_PATH, ROOT),
+        measured_on=cal.get("host", {}).get("kind"), card=card, n_jobs=30,
+        cluster="2 x 2 GPUs",
+        capacity_gb=cs.calibrated_capacity(cal) / 2 ** 30)
+    first = cs.calibrated_run(cal)
+    again = cs.calibrated_run(cal)
+    for policy, r in first.items():
+        _all_finished("policies", f"calibrated {policy}", r["res"], 30)
+        _same_log("policies", f"calibrated {policy} rerun",
+                  again[policy]["sim"].log, r["sim"].log)
+        log("policies", part="table2-calibrated", policy=policy,
+            **_policy_row(r["res"], r["seconds"]))
+    for d in DECISIONS[1:]:
+        other = cs.calibrated_run(cal, policies=("sjf-bsbf",), decision=d)
+        _same_log("policies", f"calibrated sjf-bsbf {d}",
+                  other["sjf-bsbf"]["sim"].log, first["sjf-bsbf"]["sim"].log)
+    log("policies", part="table2-calibrated", card=card,
+        **cs.headline(first))
+
+    # (b) the paper's traces, its interference model
+    paper = (("table2-physical", physical_trace(seed=0), 4, 4),
+             ("table3-240", simulation_trace(240), 16, 4),
+             ("table4-480", simulation_trace(480), 16, 4))
+    for part, jobs, servers, per in paper:
+        heap = cs.run_policies(jobs, cs.ALL_SEVEN, n_servers=servers,
+                               gpus_per_server=per)
+        scan = cs.run_policies(jobs, cs.ALL_SEVEN, n_servers=servers,
+                               gpus_per_server=per, engine="scan")
+        for policy in cs.ALL_SEVEN:
+            h, sc = heap[policy], scan[policy]
+            _all_finished("policies", f"{part} {policy}", h["res"],
+                          len(jobs))
+            _heap_matches_scan("policies", f"{part} {policy}",
+                               (h["sim"], h["res"]), (sc["sim"], sc["res"]))
+            log("policies", part=part, policy=policy,
+                scan_seconds=sc["seconds"], **_policy_row(h["res"],
+                                                          h["seconds"]))
+        for d in DECISIONS[1:]:
+            other = cs.run_policies(jobs, ("sjf-bsbf",), n_servers=servers,
+                                    gpus_per_server=per, decision=d)
+            _same_log("policies", f"{part} sjf-bsbf {d}",
+                      other["sjf-bsbf"]["sim"].log,
+                      heap["sjf-bsbf"]["sim"].log)
+        log("policies", part=part, n_jobs=len(jobs),
+            cluster=f"{servers} x {per} GPUs", card=card,
+            **cs.headline(heap))
+
+    # (c) datacenter scale: the three decision paths' logs equal
+    jobs = philly_trace(n_jobs=PHILLY_JOBS, seed=0, n_gpus=PHILLY_GPUS)
+    log("policies", part="philly-1024", n_jobs=PHILLY_JOBS,
+        cluster=f"{PHILLY_GPUS // PHILLY_PER_SERVER} x {PHILLY_PER_SERVER}"
+                " GPUs, 11 GB", card=card)
+    for policy in ("sjf", "sjf-bsbf"):
+        logs = {}
+        for d in DECISIONS:
+            cluster = ClusterState(PHILLY_GPUS // PHILLY_PER_SERVER,
+                                   PHILLY_PER_SERVER,
+                                   gpu_capacity_bytes=11 * 2 ** 30)
+            sim = Simulator(cluster, copy.deepcopy(jobs),
+                            make_scheduler(policy),
+                            interference=paper_interference_model(),
+                            decision=d)
+            t0 = time.perf_counter()
+            res = sim.run()
+            seconds = time.perf_counter() - t0
+            _all_finished("policies", f"philly {policy} {d}", res,
+                          PHILLY_JOBS)
+            logs[d] = sim.log
+            log("policies", part="philly-1024", policy=policy, decision=d,
+                events=res.events, seconds=seconds,
+                events_per_second=res.events / seconds,
+                avg_jct=res.avg_jct(), avg_queue=res.avg_queueing(),
+                makespan=res.makespan)
+        for d in DECISIONS[1:]:
+            _same_log("policies", f"philly {policy} {d}", logs[d],
+                      logs["scalar"])
+    log("policies", card=card, seconds=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------- #
 # phase 7: checkpoints, fault recovery and segment retry
 # ---------------------------------------------------------------------- #
 # minicpm-2b at 4 of its 40 layers (qwen2-vl-2b at 4 of 28), full width:
@@ -3142,6 +3306,7 @@ def main() -> int:
     phase_pair()
     launches_calibrate = phase_calibrate()
     launches_replay = phase_replay()
+    phase_policies()
     launches_recovery = phase_recovery()
     launches_train = phase_train()
     phase_profile()

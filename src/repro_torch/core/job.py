@@ -1,18 +1,22 @@
 """Job and cluster state for the scheduling model (Section IV); the
-port's copy of the reference's ``core/job.py``, without the hooks of its
-vectorized decision paths, which the port does not carry."""
+port's copy of the reference's ``core/job.py``, with the hooks that keep
+the vectorized decision paths' flat tables current."""
 from __future__ import annotations
 
 import enum
+import math
 from dataclasses import dataclass, field
-from typing import Dict, FrozenSet, List, Optional, Set
+from typing import Dict, FrozenSet, List, Optional, Set, Tuple
 
-from .perf_model import PerfParams
+from .perf_model import PerfParams, t_iter_at_workers
+
+import numpy as _np
 
 
 class JobState(enum.Enum):
     PENDING = "pending"
     RUNNING = "running"
+    SUSPENDED = "suspended"   # only preemptive baselines use this
     FINISHED = "finished"
 
 
@@ -39,13 +43,17 @@ class Job:
     iters_done: float = 0.0
     last_progress_at: float = 0.0
     current_rate: float = 0.0   # iterations / second right now
-    preemptions: int = 0        # re-queues (by a fault, in the port)
+    preemptions: int = 0
     failures: int = 0           # injected faults that killed an attempt
     lost_iters: float = 0.0     # work rolled back to the last checkpoint
-    waiting_time: float = 0.0   # total time not holding GPUs (queue + re-queued)
+    attained_service: float = 0.0   # gpus * seconds (Tiresias)
+    alloc_gpus: Optional[int] = None  # elastic allocation (Pollux-like only)
+    waiting_time: float = 0.0       # total time not holding GPUs (queue + preempted)
     # memos: solo_t_iter keyed by sub_batch, t_iter keyed by the candidate
-    # sub-batch (scheduler sort keys and Algorithm-2 sub-batch sweeps hit
-    # these on every pass), and the solo-fit sub-batch per capacity
+    # sub-batch / accumulation count (scheduler sort keys and Algorithm-2
+    # sub-batch sweeps hit these millions of times on large traces), the
+    # solo-fit sub-batch per capacity, and the Algorithm-2 candidate
+    # arrays built lazily by :mod:`core.pair_batch`
     _t_iter_memo: Optional[tuple] = field(
         default=None, repr=False, compare=False)
     _t_iter_by_b: Dict[int, float] = field(
@@ -54,6 +62,8 @@ class Job:
         default=None, repr=False, compare=False)
     _solo_sub_memo: Dict[float, Optional[int]] = field(
         default_factory=dict, repr=False, compare=False)
+    _pair_table: Optional[tuple] = field(
+        default=None, repr=False, compare=False)
 
     def __post_init__(self) -> None:
         if self.sub_batch == 0:
@@ -69,10 +79,22 @@ class Job:
         self._t_iter_memo = (self.sub_batch, val)
         return val
 
+    def base_t_iter(self) -> float:
+        """Iteration time in *user iterations* given the current elastic
+        allocation (equals ``solo_t_iter`` unless a Pollux-like scheduler
+        resized the job). Weak scaling: per-GPU batch fixed, progress
+        normalized so that n workers advance n/G_k user iterations per
+        physical iteration (same total samples => same convergence)."""
+        n = self.alloc_gpus or self.gpus
+        if n == self.gpus:
+            return self.solo_t_iter
+        t_phys = t_iter_at_workers(self.perf, self.batch, self.accum_steps, n)
+        return t_phys * self.gpus / n
+
     def t_iter_sub(self, sub_batch: int) -> float:
         """Memoized ``perf.t_iter_sub(batch, sub_batch)``: the
-        Algorithm-2 sweep re-evaluates the same few candidate sub-batches
-        for a job on every scheduling pass."""
+        Algorithm-2 sweep re-evaluates the same handful of candidate
+        sub-batches for a job on every scheduling pass."""
         val = self._t_iter_by_b.get(sub_batch)
         if val is None:
             val = self.perf.t_iter_sub(self.batch, sub_batch)
@@ -97,6 +119,11 @@ class Job:
         self._ert_memo = (self.iters_done, self.sub_batch, val)
         return val
 
+    @property
+    def service_size(self) -> float:
+        """Job 'size' used for the large/small split in Tables III-IV."""
+        return self.gpus
+
     def jct(self) -> float:
         if self.finish_time is None:
             raise RuntimeError(f"job {self.jid} not finished")
@@ -104,18 +131,28 @@ class Job:
 
     def queueing_delay(self) -> float:
         """Total time spent without GPUs (initial queueing + time spent
-        re-queued after a fault) — the paper's 'queuing delay'."""
+        re-queued after preemption) — the paper's 'queuing delay', which
+        charges preemptive policies for their migrations."""
         return self.waiting_time
+
+    def first_start_delay(self) -> float:
+        if self.first_start_time is None:
+            raise RuntimeError(f"job {self.jid} never started")
+        return self.first_start_time - self.arrival
 
 
 @dataclass
 class ClusterState:
     """Servers x GPUs with <= C jobs per GPU (C=2 in the paper).
 
-    The free set, single-occupancy set and per-server free sets are
-    maintained as O(1) updates per GPU inside :meth:`allocate`/:meth:`release`; the sorted
-    list views handed to schedulers are materialized lazily from the sets
-    (cached per occupancy version), in id order.
+    The free set, single-occupancy set, per-server free sets, and the
+    donor (job -> #single-occupancy GPUs) index are maintained as O(Δ)
+    updates inside :meth:`allocate`/:meth:`release` — the sharing
+    schedulers read them every pass, and the previous version-gated
+    full rescans were O(n_gpus) per pass at datacenter scale. The
+    sorted list views handed to schedulers are materialized lazily from
+    the sets (cached per occupancy version) so callers keep the exact
+    id-ordering semantics of the original scan.
     """
 
     n_servers: int
@@ -134,6 +171,18 @@ class ClusterState:
     _single: Set[int] = field(default_factory=set, repr=False, compare=False)
     _free_by_server: List[Set[int]] = field(
         default_factory=list, repr=False, compare=False)
+    _single_owner: Dict[int, int] = field(
+        default_factory=dict, repr=False, compare=False)   # gpu -> sole jid
+    _donor_count: Dict[int, int] = field(
+        default_factory=dict, repr=False, compare=False)   # jid -> #single GPUs
+    # per-server free-GPU counts as a flat preallocated array:
+    # consolidated_pick_free reads it instead of
+    # re-deriving bucket sizes, and the vectorized scheduling pass
+    # (core.pass_batch) reads the attached FlatJobs mirror below
+    _free_count: object = field(default=None, repr=False, compare=False)
+    # optional core.pass_batch.FlatJobs attachment: when present,
+    # donor-membership transitions are pushed into its flat donor index
+    _flat: object = field(default=None, repr=False, compare=False)
     # servers currently failed: their GPUs are out of the free pool until
     # the matching recover event
     _down_servers: Set[int] = field(
@@ -143,13 +192,16 @@ class ClusterState:
         for g in range(self.n_gpus):
             self.occupancy.setdefault(g, [])
         self._free_by_server = [set() for _ in range(self.n_servers)]
+        self._free_count = _np.zeros(self.n_servers, dtype=_np.int64)
         for g in range(self.n_gpus):
             occ = self.occupancy[g]
             if not occ:
                 self._free.add(g)
-                self._free_by_server[self.server_of(g)].add(g)
+                sid = self.server_of(g)
+                self._free_by_server[sid].add(g)
+                self._free_count[sid] += 1
             elif len(occ) == 1:
-                self._single.add(g)
+                self._mark_single(g, occ[0])
 
     @property
     def n_gpus(self) -> int:
@@ -159,8 +211,38 @@ class ClusterState:
     def n_free(self) -> int:
         return len(self._free)
 
+    @property
+    def n_single(self) -> int:
+        return len(self._single)
+
+    @property
+    def version(self) -> int:
+        """Occupancy version, bumped on every allocate/release — lets
+        callers cache occupancy-derived views (donor batches, sorted
+        GPU lists) and invalidate them on placement changes."""
+        return self._version
+
     def server_of(self, gpu: int) -> int:
         return gpu // self.gpus_per_server
+
+    # -- incremental index maintenance --------------------------------- #
+    def _mark_single(self, gpu: int, jid: int) -> None:
+        self._single.add(gpu)
+        self._single_owner[gpu] = jid
+        self._donor_count[jid] = count = self._donor_count.get(jid, 0) + 1
+        if self._flat is not None:
+            self._flat.set_donor_singles(jid, count)
+
+    def _unmark_single(self, gpu: int) -> None:
+        self._single.discard(gpu)
+        jid = self._single_owner.pop(gpu)
+        left = self._donor_count[jid] - 1
+        if left:
+            self._donor_count[jid] = left
+        else:
+            del self._donor_count[jid]
+        if self._flat is not None:
+            self._flat.set_donor_singles(jid, left)
 
     # ------------------------------------------------------------------ #
     def free_gpus(self) -> List[int]:
@@ -178,6 +260,14 @@ class ClusterState:
             self._single_cache = (self._version, sorted(self._single))
         return self._single_cache[1]
 
+    def donor_jids(self) -> Set[int]:
+        """Jobs owning at least one single-occupancy GPU (the Algorithm-1
+        donor candidates). Read-only live view."""
+        return self._donor_count.keys()
+
+    def jobs_on(self, gpu: int) -> List[int]:
+        return list(self.occupancy[gpu])
+
     @staticmethod
     def _pick_from_buckets(buckets, k: int) -> List[int]:
         """Take GPUs bucket-by-bucket (id-ascending within a bucket)
@@ -190,34 +280,103 @@ class ClusterState:
                     return picked
         return picked
 
-    def consolidated_pick_free(self, k: int) -> List[int]:
-        """Pick ``k`` free GPUs packed onto as few servers as possible (the
-        paper's 'as consolidated on the nodes as possible'): servers by
-        (-free count, id), GPUs by id within each."""
-        order = sorted(
-            ((sid, gpus) for sid, gpus in enumerate(self._free_by_server)
-             if gpus),
-            key=lambda kv: (-len(kv[1]), kv[0]))
+    def consolidated_pick(self, candidates: List[int], k: int) -> List[int]:
+        """Pick ``k`` GPUs from ``candidates`` packed onto as few servers as
+        possible (the paper's 'as consolidated on the nodes as possible')."""
+        by_server: Dict[int, List[int]] = {}
+        for g in candidates:
+            by_server.setdefault(self.server_of(g), []).append(g)
+        # Prefer servers with the most candidate GPUs; stable by server id.
+        order = sorted(by_server.items(), key=lambda kv: (-len(kv[1]), kv[0]))
         return self._pick_from_buckets(order, k)
 
+    def consolidated_pick_free(self, k: int) -> List[int]:
+        """``consolidated_pick(free_gpus(), k)`` off the per-server free
+        index. The common case (the request fits on the single
+        most-free server) is one ``argmax`` over the flat
+        free-count array; the multi-server spill sorts server ids by
+        ``(-count, sid)`` with one C-level ``lexsort``. Both reproduce
+        the original bucket order exactly."""
+        fbs = self._free_by_server
+        cnt = self._free_count
+        # first max == smallest server id among ties, the bucket head
+        m = int(cnt.argmax())
+        if cnt[m] >= k > 0:
+            if k == 1:
+                return [min(fbs[m])]
+            return sorted(fbs[m])[:k]
+        order = _np.lexsort((_np.arange(self.n_servers), -cnt))
+        buckets = ((int(sid), fbs[sid]) for sid in order if cnt[sid])
+        return self._pick_from_buckets(buckets, k)
+
+    def smallest_free(self, k: int) -> List[int]:
+        """The ``k`` smallest free GPU ids — ``free_gpus()[:k]`` without
+        materializing (and sorting) the whole free list; the sharing
+        placement only ever needs a few fill GPUs."""
+        free = self._free
+        if k <= 0:
+            return []
+        if k >= len(free):
+            return sorted(free)
+        if len(free) > 64:
+            arr = _np.fromiter(free, dtype=_np.int64, count=len(free))
+            head = _np.partition(arr, k - 1)[:k]
+            head.sort()
+            return head.tolist()
+        return sorted(free)[:k]
+
     def allocate(self, jid: int, gpus: FrozenSet[int]) -> None:
+        # the single-occupancy transitions inline _mark_single /
+        # _unmark_single: allocate/release run once per placement at
+        # datacenter scale and the call overhead dominates
         occupancy = self.occupancy
+        free = self._free
+        fbs = self._free_by_server
+        fc = self._free_count
+        gps = self.gpus_per_server
+        max_jobs = self.max_jobs_per_gpu
+        single = self._single
+        owner = self._single_owner
+        dcount = self._donor_count
+        flat = self._flat
         for g in gpus:
             occ = occupancy[g]
             n = len(occ)
-            if n >= self.max_jobs_per_gpu:
+            if n >= max_jobs:
                 raise RuntimeError(f"GPU {g} already holds {occ}")
             occ.append(jid)
             if n == 0:
-                self._free.discard(g)
-                self._free_by_server[self.server_of(g)].discard(g)
-                self._single.add(g)
+                free.discard(g)
+                sid = g // gps
+                fbs[sid].discard(g)
+                fc[sid] -= 1
+                single.add(g)
+                owner[g] = jid
+                dcount[jid] = count = dcount.get(jid, 0) + 1
+                if flat is not None:
+                    flat.set_donor_singles(jid, count)
             elif n == 1:
-                self._single.discard(g)
+                single.discard(g)
+                prev = owner.pop(g)
+                left = dcount[prev] - 1
+                if left:
+                    dcount[prev] = left
+                else:
+                    del dcount[prev]
+                if flat is not None:
+                    flat.set_donor_singles(prev, left)
         self._version += 1
 
     def release(self, jid: int, gpus: FrozenSet[int]) -> None:
         occupancy = self.occupancy
+        free = self._free
+        fbs = self._free_by_server
+        fc = self._free_count
+        gps = self.gpus_per_server
+        single = self._single
+        owner = self._single_owner
+        dcount = self._donor_count
+        flat = self._flat
         for g in gpus:
             occ = occupancy[g]
             if jid not in occ:
@@ -225,12 +384,27 @@ class ClusterState:
             occ.remove(jid)
             n = len(occ)
             if n == 0:
-                self._single.discard(g)
-                self._free.add(g)
-                self._free_by_server[self.server_of(g)].add(g)
+                single.discard(g)
+                prev = owner.pop(g)
+                left = dcount[prev] - 1
+                if left:
+                    dcount[prev] = left
+                else:
+                    del dcount[prev]
+                if flat is not None:
+                    flat.set_donor_singles(prev, left)
+                free.add(g)
+                sid = g // gps
+                fbs[sid].add(g)
+                fc[sid] += 1
             elif n == 1:
                 # the surviving tenant becomes the sole owner
-                self._single.add(g)
+                surv = occ[0]
+                single.add(g)
+                owner[g] = surv
+                dcount[surv] = count = dcount.get(surv, 0) + 1
+                if flat is not None:
+                    flat.set_donor_singles(surv, count)
         self._version += 1
 
     # -- failure-aware availability ------------------------------------ #
@@ -256,6 +430,7 @@ class ClusterState:
                     f"{self.occupancy[g]}")
             self._free.discard(g)
         self._free_by_server[sid].clear()
+        self._free_count[sid] = 0
         self._down_servers.add(sid)
         self._version += 1
 
@@ -268,6 +443,7 @@ class ClusterState:
         for g in self.server_gpus(sid):
             self._free.add(g)
             fbs.add(g)
+        self._free_count[sid] = self.gpus_per_server
         self._version += 1
 
     def co_runners(self, job: Job) -> Set[int]:

@@ -97,3 +97,8 @@ def best_pair_schedule(a: PairJob, b: PairJob) -> PairDecision:
         return PairDecision(True, 0.0, t_a0, t_b0, avg0)
     return PairDecision(False, seq_kappa, t_a1, t_b1, avg1)
 
+
+def monotonicity_coefficient(a: PairJob, b: PairJob) -> float:
+    """The paper's sign term 2*xi_B + xi_A - 2*xi_A*xi_B (Eq. 24): positive
+    -> avg JCT increases with kappa (share now), negative -> sequential."""
+    return 2.0 * b.xi + a.xi - 2.0 * a.xi * b.xi

@@ -127,6 +127,38 @@ def t_iter_at_workers(p: PerfParams, batch: float, accum_steps: int,
     return (accum_steps - 1) * tc + (tc ** d + tn ** d) ** (1.0 / d)
 
 
+def derive_perf_params(
+    *,
+    flops_per_sample: float,
+    param_bytes: float,
+    n_workers: int,
+    hw: HardwareSpec,
+    act_bytes_per_sample: float,
+    opt_bytes: float,
+    delta: float = 2.0,
+    kernel_overhead: float = 2e-3,
+) -> PerfParams:
+    """Eq. 3/4 coefficients derived analytically from a model's FLOPs and
+    gradient size on hardware ``hw`` (the trace generators' task
+    profiles; the paper instead fits them from measured throughput, see
+    ``fit_comp_params``)."""
+    beta_comp = flops_per_sample / (hw.peak_flops * hw.mfu)
+    msg = ring_allreduce_bytes(param_bytes, n_workers)
+    beta_comm = 1.0 / hw.link_bytes_per_s
+    return PerfParams(
+        alpha_comp=kernel_overhead,
+        beta_comp=beta_comp,
+        alpha_comm=hw.alpha_comm * max(1, int(math.log2(max(2, n_workers)))),
+        beta_comm=beta_comm,
+        msg_bytes=msg,
+        delta=delta,
+        mem_base=param_bytes + opt_bytes,
+        mem_per_sample=act_bytes_per_sample,
+        param_bytes=param_bytes,
+        n_workers=n_workers,
+    )
+
+
 def fit_comp_params(batches: Sequence[float],
                     times: Sequence[float]) -> tuple[float, float]:
     """Least-squares fit of Eq. 3: t = alpha + beta*B. Returns (alpha, beta)."""

@@ -48,11 +48,12 @@ def test_configs_match_reference(name):
 
 def test_unported_families_name_their_slice():
     """Every architecture of the reference is ported; what the port
-    still refuses is refused by name: an unknown arch or family, and the
-    scheduler's decision paths other than the scalar one."""
+    still refuses is refused by name, with the reference's message: an
+    unknown arch or family, an unknown decision path or policy, and the
+    donor-rescaling extension off the scalar decision path."""
     from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
     from repro_torch.configs import ARCH_NAMES
-    from repro_torch.core.schedulers import SJF_BSBF
+    from repro_torch.core.schedulers import SJF_BSBF, make_scheduler
     assert ARCH_NAMES == JAX_ARCH_NAMES
     for name in JAX_ARCH_NAMES:
         assert get_config(name).name == name
@@ -62,9 +63,14 @@ def test_unported_families_name_their_slice():
                               family="retnet")
     with pytest.raises(ValueError, match="unknown family 'retnet'"):
         init_params(cfg, 0, device="cpu")
-    for decision in ("grid", "batched"):
-        with pytest.raises(ValueError, match="not ported"):
-            SJF_BSBF(decision=decision)
+    with pytest.raises(ValueError, match="unknown decision path 'fast'; "
+                       r"choose from \['batched', 'grid', 'scalar'\]"):
+        SJF_BSBF(decision="fast")
+    with pytest.raises(ValueError, match="unknown policy 'lottery'"):
+        make_scheduler("lottery")
+    with pytest.raises(ValueError,
+                       match="donor_reconfig requires decision='scalar'"):
+        SJF_BSBF(decision="grid", donor_reconfig=True)
 
 
 @pytest.mark.parametrize("name", MODELS)

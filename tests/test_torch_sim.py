@@ -206,10 +206,22 @@ def test_zero_rate_fault_model_changes_nothing(seed):
 
 
 def test_decision_paths_not_ported_are_refused():
-    with pytest.raises(ValueError, match="scalar path only"):
-        schedulers.SJF_BSBF(decision="grid")
-    with pytest.raises(ValueError, match="scalar path only"):
-        schedulers.SJF_BSBF(decision="batched")
+    """Every decision path of the reference is ported; what is refused
+    is refused with the reference's message: an unknown path (by the
+    policy and by the Simulator), an unknown policy, and donor rescaling
+    off the scalar path."""
+    with pytest.raises(ValueError, match="unknown decision path 'vector'"):
+        schedulers.SJF_BSBF(decision="vector")
+    jobs, cluster = _random_trace(0, PORT)
+    with pytest.raises(ValueError, match="unknown decision path 'vector'"):
+        Simulator(cluster, jobs, schedulers.SJF_BSBF(), decision="vector")
+    with pytest.raises(ValueError, match="unknown policy 'sjf_bsbf'"):
+        schedulers.make_scheduler("sjf_bsbf")
+    for decision in ("grid", "batched"):
+        with pytest.raises(ValueError,
+                           match="donor_reconfig requires decision='scalar'"):
+            schedulers.SJF_BSBF(decision=decision, donor_reconfig=True)
+        assert schedulers.SJF_BSBF(decision=decision).decision == decision
     assert schedulers.SJF_BSBF(decision="scalar").donor_reconfig is False
 
 
