@@ -23,8 +23,10 @@ linear decode kernel, granite-moe-3b-a800m's MoE layers; and the last
 two families: xlstm-1.3b (no kernel: its mLSTM and sLSTM are plain
 PyTorch, as the reference's are plain JAX) and whisper-tiny, whose
 cross-attention takes the flash kernels with Sk != Sq, backward
-included, and the linear decode kernel. Phases, in order; each prints
-its own line and any failure exits non-zero:
+included, and the linear decode kernel; the decode kernels' split
+tuned per shape class on the card; and the fleet, a master leasing
+whisper-tiny jobs to two agent processes that share the card. Phases,
+in order; each prints its own line and any failure exits non-zero:
 
 1. build    - builds the three kernel libraries (flash attention, flash
               decode, SSD) from ``src/repro_torch/kernels/csrc``, one
@@ -150,17 +152,37 @@ its own line and any failure exits non-zero:
               excluded), pages, hit rate, launch counts. Then the same
               three engines and solo generation on a reduced config in
               f32, where every token identity is required.
-14. hybrid_serve - zamba2-7b at 81 layers, bf16: ``generate`` at batch 4,
+14. autotune - ``kernels/autotune.py``'s sweep on the card (the decode
+              split 128 / 256 / 512 per class, one split per (head_dim,
+              dtype); attention's and the SSD's one form each; each
+              beside the plain version and SDPA) into a temporary table:
+              each class's winner, t_best, t_default, t_ref, t_lib;
+              required: each (head_dim, dtype) whose split moved off 256,
+              timed afresh, no slower there than at 256 (within 1 %);
+              the host cost of ``ops._resolve`` with and without the
+              table. Under the table: each split against the plain
+              decode version, linear and paged, at head_dim 64 / 112 /
+              128 / 160, bf16 and f32; ``ops`` takes the tuned split;
+              the reduced f32 engines' identities (paged == dense,
+              engine == solo, prefix-shared == private) with
+              620-1120-token prompts, bitwise, under the tuned table and
+              tables forced to split 128 and 512. Every other phase runs
+              with no table installed, and it ends with none.
+15. hybrid_serve - zamba2-7b at 81 layers, bf16: ``generate`` at batch 4,
               1024-token prompts, max_len 4096, 64 greedy tokens (prefill
               ms, ms per decode step, tokens/s, peak memory; launches
               exact: ``ssd_fwd`` 81 and ``flash_fwd`` 9 per prefill,
-              ``flash_decode`` 9 per step); a profile of 8 decode steps;
+              ``flash_decode`` 9 per step); a profile of 4 decode steps;
               the ``DecodeEngine`` with 8 slots, dense and paged, on 16
               requests of 256-1024 prompt tokens and 32-64 new tokens:
               paged == dense and engine == solo ``generate`` (required);
-              then dense, paged and solo on a reduced zamba2 (18 layers)
-              in f32, every token identity required.
-15. families - bf16, full width: (a) stablelm-12b at all 40 layers
+              ``generate`` (32 tokens) with no table, under the
+              ``autotune`` phase's table (its split at head_dim 112 is
+              the shared block's), again, and with none: ms a decode
+              step each, reported; then dense, paged and solo on a
+              reduced zamba2 (18 layers) in f32, every token identity
+              required.
+16. families - bf16, full width: (a) stablelm-12b at all 40 layers
               through ``generate`` (batch 4, 1024-token prompts, 64
               tokens, scan == eager; 40 flash forwards a prefill, 40
               decodes a step) and a decode profile; (b) stablelm-12b at
@@ -169,19 +191,20 @@ its own line and any failure exits non-zero:
               head_dim 160 kernels); (c) glm4-9b at all 40 layers with
               the reference's long-context window of 8192, 2 prompts of
               9216 tokens, 64 tokens, scan == eager, 8192 cache rows a
-              layer; (d) granite-moe-3b-a800m at all 32 layers, einsum
-              dispatch, through the executor as (b), a profiled step
-              with the MoE einsums' device time, ``generate`` (batch 4,
-              1024, 32 tokens) and a decode profile; (e) reduced f32:
+              layer; (d) granite-moe-3b-a800m, einsum dispatch, at 16
+              of 32 layers through the executor as (b) and a profiled
+              step with the MoE einsums' device time, at all 32 through
+              ``generate`` (batch 4, 1024, 32 tokens) and a decode
+              profile; (e) reduced f32:
               a windowed glm4-9b (window 16) dense engine == solo;
               granite-moe and llama4-maverick under the dense dispatch
               (capacity factor 8): paged == dense, prefix-shared ==
               private, engine == solo.
-16. xlstm_whisper - bf16, full width: (a) xlstm-1.3b at all 48 layers
+17. xlstm_whisper - bf16, full width: (a) xlstm-1.3b at 16 of 48 layers
               through ``ScheduleExecutor`` at B 4, seq 256 (one mLSTM
-              chunk; the one cut: the sLSTM's per-token loop took 20.4
-              s a step at 512), s = 2, a warm-up and two timed steps,
-              the last profiled (kernels, busy share); ``generate`` at batch 4,
+              chunk: the sLSTM's per-token loop took 20.4 s a step at
+              512), s = 2, a warm-up and two timed steps, the last
+              profiled (kernels, busy share); at all 48 ``generate`` at batch 4,
               1024-token prompts, 64 tokens, scan == eager, and a
               decode profile; every kernel launched 0 times; (b)
               whisper-tiny (4 + 4 layers, 1500 frames) through the
@@ -192,9 +215,24 @@ its own line and any failure exits non-zero:
               among them; 8 decodes a step); (c) reduced f32: the
               xLSTM engine == solo; Whisper's paged decode == dense
               and scan == eager, bitwise. Prints its seconds.
+18. fleet   - whisper-tiny at full size (4 + 4 layers, 1500 frames,
+              decoder seq 448, bf16, B 4), seeds 0-3, on the fleet
+              test's replay plan (4 jobs, a 3-way sharing group with
+              donor reconfigurations, 16 steps): the single-host
+              executor, then ``launch.fleet``'s master with two agent
+              processes sharing the card, then the same with agent a0
+              SIGKILLed after two steps (a checkpoint every second step
+              of a job there). Required: every job finishes
+              with the single host's steps, loss and checkpoint CRC,
+              exactly; the kill detected under ``dead_after`` + 1 s and
+              re-dispatched; without it the agents' launches sum to the
+              single host's. Prints each lease's seconds, peak memory
+              and launches, the checkpoint bytes, the detection latency.
 
-Then the card's name and power limit, the ``kernels`` JSON line, and as
-the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX
+Every log line carries ``at_s``, the seconds since the script started;
+the ``done`` line gives each phase's seconds beside the 1200 s the
+whole run must stay under. Then the card's name and power limit, the
+``kernels`` JSON line, and as the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 or of the JAX package. Needs one card.
 """
 from __future__ import annotations
@@ -281,7 +319,13 @@ LONG_WINDOW = 8192
 ENGINE_SLOTS, ENGINE_SEGMENT, ENGINE_REQUESTS, SYSTEM_PREFIX = 8, 16, 16, 1024
 
 
+_T_START = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
+    """One JSON line, with the seconds since the script started
+    (``at_s``)."""
+    fields["at_s"] = round(time.perf_counter() - _T_START, 3)
     print(f"[{phase}] " + json.dumps(fields), flush=True)
 
 
@@ -698,10 +742,11 @@ def _decode_bound(lengths, s, h, h_kv, d, dtype_name, page_size=None
 
 
 def decode_case(label, b, h, h_kv, s, d, dtype, lengths, timed,
-                page_size=16):
+                page_size=16, split=256, phase="parity"):
     """Both decode kernels against their plain versions on the same rows
     (linear cache and shuffled pool), the same bits from both kernels,
-    and, if ``timed``, kernel / plain / SDPA times and the bound."""
+    and, if ``timed``, kernel / plain / SDPA times and the bound. The
+    kernels take ``split`` key positions a block (their default 256)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
@@ -713,8 +758,8 @@ def decode_case(label, b, h, h_kv, s, d, dtype, lengths, timed,
                                               lengths, page_size)
     g = h // h_kv
     krep, vrep = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
-    out = fd.flash_decode(q, k, v, lengths)
-    out_p = fd.flash_decode_paged(q, kp, vp, pages, lengths)
+    out = fd.flash_decode(q, k, v, lengths, split=split)
+    out_p = fd.flash_decode_paged(q, kp, vp, pages, lengths, split=split)
     want = ref.flash_decode_ref(q, krep, vrep, lengths)
     want_p = ref.flash_decode_paged_ref(q, kp, vp, pages, lengths)
     torch.cuda.synchronize()
@@ -726,7 +771,8 @@ def decode_case(label, b, h, h_kv, s, d, dtype, lengths, timed,
                 "flash_decode_paged": _abs_err(out_p, want_p)}
     empty = [i for i, n in enumerate(lengths.tolist()) if n == 0]
     row = {"case": label, "shape": [b, h, h_kv, s, d], "dtype": dname,
-           "page_size": page_size, "lengths": lengths.tolist(), "tol": tol,
+           "page_size": page_size, "split": split,
+           "lengths": lengths.tolist(), "tol": tol,
            "row_rel_err": errs, "max_abs_err": abs_errs,
            "max_abs_plain": float(want.float().abs().max()),
            "paged_equals_linear": bool(torch.equal(out, out_p)),
@@ -734,13 +780,13 @@ def decode_case(label, b, h, h_kv, s, d, dtype, lengths, timed,
                                    for o in (out, out_p) for i in empty)}
     bad = {n: e for n, e in errs.items() if not e <= tol}
     if bad or not row["paged_equals_linear"] or not row["empty_slots_zero"]:
-        log("parity", **row)
+        log(phase, **row)
         raise AssertionError(f"decode kernel disagrees in {label}: {bad}, "
                              f"paged == linear {row['paged_equals_linear']}"
                              f", empty slots 0 {row['empty_slots_zero']}")
     if not timed:
-        log("parity", **row)
-        return None
+        log(phase, **row)
+        return errs
     # library yardstick: SDPA with a length mask on (B, H, S, D) kv
     # repeated to H; for the paged row, on the gathered pages
     valid = (torch.arange(s, device="cuda")[None, :]
@@ -756,13 +802,14 @@ def decode_case(label, b, h, h_kv, s, d, dtype, lengths, timed,
                < lengths[:, None])[:, None, None, :]
     fns = {
         "flash_decode": (
-            lambda: fd.flash_decode(q, k, v, lengths),
+            lambda: fd.flash_decode(q, k, v, lengths, split=split),
             lambda: ref.flash_decode_ref(q, k.repeat_interleave(g, 2),
                                          v.repeat_interleave(g, 2), lengths),
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    attn_mask=valid)),
         "flash_decode_paged": (
-            lambda: fd.flash_decode_paged(q, kp, vp, pages, lengths),
+            lambda: fd.flash_decode_paged(q, kp, vp, pages, lengths,
+                                          split=split),
             lambda: ref.flash_decode_paged_ref(q, kp, vp, pages, lengths),
             lambda: F.scaled_dot_product_attention(qt, kg, vg,
                                                    attn_mask=valid_p)),
@@ -777,7 +824,7 @@ def decode_case(label, b, h, h_kv, s, d, dtype, lengths, timed,
                                         dname, page_size if "paged" in name
                                         else None)}
     row["timing"] = timing
-    log("parity", **row)
+    log(phase, **row)
     return abs_errs, timing
 
 
@@ -2533,7 +2580,13 @@ def phase_serve():
     return launches["scan"]
 
 
-def _profile_decode(cfg, params, prompt, steps: int = 8, phase="serve"):
+# decode steps a decode profile traces: few, as the profiler's cost grows
+# with the kernels it records (2.7-5.9k a step)
+PROFILE_DECODE_STEPS = 4
+
+
+def _profile_decode(cfg, params, prompt, steps: int = PROFILE_DECODE_STEPS,
+                    phase="serve"):
     """Device time of ``steps`` decode steps after a prefill, by kernel
     category (``_category``), and the device's busy share of their wall
     time."""
@@ -2672,7 +2725,7 @@ def _cublas_rows(cfg, params, ms) -> dict:
 
 
 def _engine_small(name="qwen2-vl-2b", n_layers=None, phase=None,
-                  **overrides):
+                  long=False, **overrides):
     """The engines and solo ``generate`` on a reduced ``name`` in f32
     (with ``overrides`` of its config), on the card: every token identity
     the CPU tests pin must hold here too. The dense engine for every
@@ -2681,7 +2734,9 @@ def _engine_small(name="qwen2-vl-2b", n_layers=None, phase=None,
     and vlm, and moe under the dense dispatch): a 40-token shared prefix
     is 2.5 pages of 16, so hits map two shared pages and fork the
     boundary page copy-on-write; ``debug=True`` audits the paging
-    invariants every segment."""
+    invariants every segment. ``long``: a 520-token shared prefix, prompts
+    of 620-1120 tokens and max_len 1280, so every slot's decode spans
+    several splits of 128, 256 or 512 key positions."""
     import dataclasses
     import numpy as np
     import torch
@@ -2698,11 +2753,13 @@ def _engine_small(name="qwen2-vl-2b", n_layers=None, phase=None,
         cfg.family == "moe" and cfg.moe_dispatch == "dense"))
     params = init_params(cfg, 2)
     rng = np.random.default_rng(2)
-    system = rng.integers(0, cfg.vocab, 40)
+    prefix, own, max_len = (520, (100, 600), 1280) if long \
+        else (40, (3, 30), 128)
+    system = rng.integers(0, cfg.vocab, prefix)
     reqs = [(np.concatenate([system, rng.integers(
-        0, cfg.vocab, int(rng.integers(3, 30)))]), int(rng.integers(8, 25)))
+        0, cfg.vocab, int(rng.integers(*own)))]), int(rng.integers(8, 25)))
         for _ in range(8)]
-    kw = dict(n_slots=4, max_len=128, segment=8)
+    kw = dict(n_slots=4, max_len=max_len, segment=8)
     ways = {"dense": {}}
     if paged:
         ways["paged"] = {"paged": True, "page_size": 16}
@@ -2716,10 +2773,11 @@ def _engine_small(name="qwen2-vl-2b", n_layers=None, phase=None,
                                                 extra.get("paged")),
             **kw, **extra)
     solo = [serve.generate(cfg, params, torch.as_tensor(p)[None, :],
-                           max_new_tokens=n, max_len=128)[0].tolist()
+                           max_new_tokens=n, max_len=max_len)[0].tolist()
             for p, n in reqs]
     row = {"config": f"{cfg.name}, {cfg.n_layers} layers, float32",
            "overrides": overrides, "requests": len(reqs),
+           "prompt_tokens": [len(p) for p, _ in reqs], "max_len": max_len,
            "engine_vs_solo": _agreement(outs["dense"], solo)}
     ok = outs["dense"] == solo
     if paged:
@@ -2737,6 +2795,7 @@ def _engine_small(name="qwen2-vl-2b", n_layers=None, phase=None,
     if not ok:
         raise AssertionError(f"engine (reduced, f32): identities fail "
                              f"{row}")
+    return row
 
 
 def phase_engine():
@@ -2810,7 +2869,7 @@ def phase_engine():
 
 
 # ---------------------------------------------------------------------- #
-# phase 14: serving the hybrid at full depth
+# phase 15: serving the hybrid at full depth
 # ---------------------------------------------------------------------- #
 def _hybrid_requests(cfg):
     """16 prompts of 256-1024 tokens, 32-64 new tokens each, from one
@@ -2821,13 +2880,16 @@ def _hybrid_requests(cfg):
              int(rng.integers(32, 65))) for _ in range(ENGINE_REQUESTS)]
 
 
-def phase_hybrid_serve():
+def phase_hybrid_serve(tuned_table=None):
     """zamba2-7b at all 81 layers and full width, bf16: ``generate`` at
     batch 4 (1024-token prompts, 64 greedy tokens; prefill and decode
-    times, launch counts exact), a profile of 8 decode steps, the
+    times, launch counts exact), a profile of 4 decode steps, the
     ``DecodeEngine`` dense and paged on 16 requests (paged == dense and
-    engine == solo ``generate``, bitwise); then the same identities on a
-    reduced zamba2 in f32."""
+    engine == solo ``generate``, bitwise); then ``generate`` again with
+    and without ``tuned_table`` (the ``autotune`` phase's payload: its
+    split at head_dim 112 is the shared block's); then the same
+    identities on a reduced zamba2 in f32. Every run but the last
+    comparison's is made with no table installed."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2913,6 +2975,8 @@ def phase_hybrid_serve():
     for key, agree in summary.items():
         if agree["identical"] != agree["of"]:
             raise AssertionError(f"hybrid_serve: {key} {agree}")
+    if tuned_table is not None:
+        _tuned_decode_step(cfg, params, prompt, prefill_ms, tuned_table)
     del params
     torch.cuda.empty_cache()
     _engine_small("zamba2-7b", n_layers=18)
@@ -2920,8 +2984,59 @@ def phase_hybrid_serve():
     return paths
 
 
+TUNED_STEP_NEW = 32
+
+
+def _tuned_decode_step(cfg, params, prompt, prefill_ms, payload) -> dict:
+    """``generate`` (batch 4, 1024-token prompts, 32 tokens) with no
+    table, under ``payload``, under it again and with none again: each
+    run's seconds and ms a decode step (its seconds less the prefill's,
+    over 32), each table's launches, and whether the tokens agree. What
+    the autotuned split moves on the path a user calls; reported, not
+    gated (a host-bound step; the ``autotune`` phase gates the kernels'
+    own times)."""
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import serve
+    table = autotune.AutotuneTable(payload)
+    n_attn, _ = _serve_counts(cfg)
+    runs, toks, launches = [], {}, {}
+    try:
+        for label in ("none", "tuned", "tuned", "none"):
+            autotune.set_table(table if label == "tuned" else None)
+            _reset_all()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks[label] = serve.generate(cfg, params, prompt,
+                                         max_new_tokens=TUNED_STEP_NEW,
+                                         max_len=MAX_LEN)
+            wall = time.perf_counter() - t0
+            launches[label] = _launches()
+            runs.append({"table": label, "wall_s": wall,
+                         "ms_per_decode_step":
+                         (wall * 1e3 - prefill_ms) / TUNED_STEP_NEW})
+    finally:
+        autotune.set_table(None)
+    best = {label: min(r["ms_per_decode_step"] for r in runs
+                       if r["table"] == label) for label in ("none", "tuned")}
+    row = {"model": cfg.name, "tuned_decode_step": True,
+           "split_at_d112": (table.lookup("flash_decode", MAX_LEN, 112,
+                                          torch.bfloat16, "cuda")
+                             or autotune.DEFAULTS["flash_decode"])["split"],
+           "new_tokens": TUNED_STEP_NEW, "runs": runs,
+           "best_ms_per_decode_step": best,
+           "tuned_over_none": best["tuned"] / best["none"],
+           "tokens_equal": bool(torch.equal(toks["none"], toks["tuned"])),
+           "launches": launches}
+    log("hybrid_serve", **row)
+    if launches["tuned"]["flash_decode"] != n_attn * TUNED_STEP_NEW:
+        raise AssertionError(f"hybrid_serve: tuned generate launched "
+                             f"{launches['tuned']}")
+    return row
+
+
 # ---------------------------------------------------------------------- #
-# phase 15: the remaining dense families and MoE
+# phase 16: the remaining dense families and MoE
 # ---------------------------------------------------------------------- #
 def _executor_steps(phase: str, job: str, cfg, schedule, batch=BATCH,
                     seq=SEQ, sub_batch=1, profile_last=False) -> dict:
@@ -3057,6 +3172,10 @@ def _generate_run(phase: str, cfg, params, prompt, max_len: int, new: int,
 
 
 STABLELM_TRAIN_LAYERS = 8
+# granite-moe trains at 16 of its 32 layers: at 32 its profiled step took
+# 60 s of the smoke's 1200 (the profiler's cost grows with the 70k
+# kernels a step); it serves at 32
+GRANITE_TRAIN_LAYERS = 16
 MOE_NEW = 32
 
 
@@ -3067,9 +3186,10 @@ def phase_families():
     ``ScheduleExecutor`` (the head_dim 160 backward on the model's path);
     (c) glm4-9b at all 40 layers with the reference's long-context
     sliding window of 8192, prompts past it by 1024, through ``generate``
-    (a ring buffer of 8192 rows a layer); (d) granite-moe-3b-a800m at all
-    32 layers, einsum dispatch, through ``ScheduleExecutor``, a profiled
-    step with the MoE einsums' device time, and ``generate``; (e) reduced
+    (a ring buffer of 8192 rows a layer); (d) granite-moe-3b-a800m,
+    einsum dispatch, at 16 of 32 layers through ``ScheduleExecutor`` and
+    a profiled step with the MoE einsums' device time, at all 32 through
+    ``generate``; (e) reduced
     f32 configs through the engines, every token identity required: a
     windowed glm4-9b (window 16) dense == solo; granite-moe and
     llama4-maverick under the dense dispatch (capacity factor 8, the
@@ -3118,9 +3238,10 @@ def phase_families():
     torch.cuda.empty_cache()
 
     cfg = get_config("granite-moe-3b-a800m")
-    paths["granite-moe executor"] = _executor_steps(
-        "families", "granite", cfg, ((None, 2), (2, 1)))
-    _profile_step("families", cfg, ops=("aten::einsum", "BmmBackward0"))
+    train = dataclasses.replace(cfg, n_layers=GRANITE_TRAIN_LAYERS)
+    paths["granite-moe@16 executor"] = _executor_steps(
+        "families", "granite", train, ((None, 2), (2, 1)))
+    _profile_step("families", train, ops=("aten::einsum", "BmmBackward0"))
     params = init_params(cfg, 7)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab,
                                           (SERVE_BATCH, SERVE_PROMPT)))
@@ -3139,12 +3260,15 @@ def phase_families():
 
 
 # ---------------------------------------------------------------------- #
-# phase 16: the last two families, xLSTM and Whisper
+# phase 17: the last two families, xLSTM and Whisper
 # ---------------------------------------------------------------------- #
 # xLSTM trains at seq 256 (one mLSTM chunk; its prefill of 1024 tokens
 # runs four): on an H100 a step at 512 took 20.4 s, ~690k kernels, most
-# of them the sLSTM's per-token loop
+# of them the sLSTM's per-token loop; and at 16 of its 48 layers: at 48
+# its profiled step took 75 s of the smoke's 1200 (351k kernels). It
+# serves at 48.
 XLSTM_SEQ, WHISPER_SEQ = 256, 448
+XLSTM_TRAIN_LAYERS = 16
 
 
 def _paged_from_dense(cfg, dense, page_size: int):
@@ -3222,9 +3346,10 @@ def _whisper_small(phase: str) -> dict:
 
 def phase_xlstm_whisper():
     """The last two families at full published width, bf16: (a)
-    xlstm-1.3b at all 48 layers: through ``ScheduleExecutor`` at B 4,
-    seq 256, s = 2, one warm-up and two timed steps, the last of them
-    profiled; ``generate`` at batch 4, 1024-token prompts
+    xlstm-1.3b: at 16 of its 48 layers through ``ScheduleExecutor`` at
+    B 4, seq 256, s = 2, one warm-up and two timed steps, the last of
+    them profiled; at all 48 through ``generate`` at batch 4, 1024-token
+    prompts
     (four chunks), 64 tokens, and a decode profile; no kernel launched
     anywhere (the reference has none for xLSTM). (b) whisper-tiny, 4 + 4
     layers: through the executor with frames (8, 1500, 384), decoder seq
@@ -3233,6 +3358,7 @@ def phase_xlstm_whisper():
     max_len 448 (12 forwards a prefill, 8 decodes a step). (c) reduced
     f32: the xLSTM engine == solo with more requests than slots; Whisper
     paged == dense and scan == eager."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3248,9 +3374,12 @@ def phase_xlstm_whisper():
         dtype=cfg.dtype,
         reduced=f"training seq {XLSTM_SEQ} (one mLSTM chunk) where the "
                 f"other training paths take {SEQ}: the sLSTM's per-token "
-                f"loop; width and depth as published")
-    paths["xlstm-1.3b executor"] = _executor_steps(
-        "xlstm_whisper", "xlstm", cfg, ((None, 3),), batch=BATCH,
+                f"loop; training at {XLSTM_TRAIN_LAYERS} of "
+                f"{cfg.n_layers} layers (the profiler's cost); width as "
+                f"published, serving at full depth")
+    paths["xlstm-1.3b@16 executor"] = _executor_steps(
+        "xlstm_whisper", "xlstm", dataclasses.replace(
+            cfg, n_layers=XLSTM_TRAIN_LAYERS), ((None, 3),), batch=BATCH,
         seq=XLSTM_SEQ, sub_batch=2, profile_last=True)
     params = init_params(cfg, 8)
     log("xlstm_whisper", config=cfg.name, params=param_count(params))
@@ -3288,6 +3417,412 @@ def phase_xlstm_whisper():
     return paths
 
 
+# ---------------------------------------------------------------------- #
+# phase 14: autotuning
+# ---------------------------------------------------------------------- #
+def _forced_table(split: int) -> dict:
+    """A table for this card that gives every decode call ``split``: one
+    linear entry per (head_dim, dtype); every other decode class takes
+    its pair's split."""
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import flash_decode as fd
+    return {"version": autotune.AUTOTUNE_VERSION, "created": time.time(),
+            "meta": {"backend": "cuda",
+                     "device_name": torch.cuda.get_device_name(0),
+                     "forced_split": split},
+            "entries": {autotune.shape_key("flash_decode", 4096, d, dt): {
+                "backend": "kernel", "split": split}
+                for d in fd.HEAD_DIMS for dt in (torch.bfloat16,
+                                                 torch.float32)}}
+
+
+# a re-timed tuned split may be this much slower than 256 and still pass
+# (the device's spread between two timings of one call on an H100)
+SPLIT_CONFIRM_TOL = 0.01
+SPLIT_CONFIRM_ITERS = 50
+
+
+def _confirm_splits(splits: dict) -> dict:
+    """Each (head_dim, dtype) whose tuned split is not 256, timed afresh
+    after the choice (``SPLIT_CONFIRM_ITERS`` calls a candidate, queued
+    as the sweep queues them) on every linear and paged class of the
+    pair: the summed ms at the tuned split and at 256."""
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import flash_decode as fd
+    out = {}
+    for (d, name), sp in splits.items():
+        if sp == fd.SPLIT:
+            continue
+        dev = torch.device("cuda")
+        with torch.no_grad():
+            rec = autotune._tune_flash_decode(
+                [c for c in autotune.DECODE_CLASSES if c[1] == d],
+                SPLIT_CONFIRM_ITERS, dev)
+            rec.update(autotune._tune_flash_decode_paged(
+                [c for c in autotune.PAGED_DECODE_CLASSES if c[1] == d],
+                autotune.PAGED_CAPACITY, SPLIT_CONFIRM_ITERS, dev))
+        t = {want: sum(r["t"] for c in rec.values() for r in c["rows"]
+                       if r.get("split") == want) * 1e3
+             for want in (sp, fd.SPLIT)}
+        out[f"d{d}|{name}"] = {"split": sp, "classes": sorted(rec),
+                               "tuned_ms": t[sp], "default_ms": t[fd.SPLIT],
+                               "tuned_over_default": t[sp] / t[fd.SPLIT]}
+    return out
+
+
+def _resolve_us(table) -> dict:
+    """Host microseconds of one ``ops._resolve`` for a decode call (what
+    every decode call adds before its launch), with no table and with
+    ``table`` installed."""
+    import torch
+    from repro_torch.kernels import autotune, ops
+    dev = torch.device("cuda")
+    out = {}
+    for label, t in (("none", None), ("tuned", table)):
+        autotune.set_table(t)
+        ops._resolve("flash_decode", 4096, 112, torch.bfloat16,
+                     {"split": None}, dev)
+        n = 20000
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ops._resolve("flash_decode", 4096, 112, torch.bfloat16,
+                         {"split": None}, dev)
+        out[label] = (time.perf_counter() - t0) / n * 1e6
+    autotune.set_table(None)
+    return out
+
+
+def phase_autotune():
+    """The sweep of ``kernels/autotune.py`` on the card into a temporary
+    table; each class's winner and times. Gate: every (head_dim, dtype)
+    whose split the sweep moved off 256, timed afresh on its classes, is
+    no slower at the tuned split than at 256 (within
+    ``SPLIT_CONFIRM_TOL``). The host cost of ``ops._resolve`` with and
+    without the table. Under the installed table: every split candidate
+    (128, 256, 512) against the plain decode version, linear and paged,
+    at head_dim 64 / 112 / 128 / 160 in bf16 and f32; ``ops``' decode
+    takes the tuned split; then the reduced f32 engines' identities
+    (paged == dense, engine == solo, prefix-shared == private) with
+    prompts spanning several splits, bitwise, under the tuned table and
+    under tables forced to split 128 and 512. Ends with no table
+    installed; returns the table's payload for ``hybrid_serve``'s decode
+    step with and without it."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import flash_decode as fd
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    try:
+        table, bench = autotune.run_autotune(device="cuda")
+        path = autotune.save_artifact(
+            table, os.path.join(tmp, "autotune_cuda.json"))
+        sweep_s = table["meta"]["seconds"]
+        classes = {}
+        for key, e in table["entries"].items():
+            rows = bench["sweep"][key]["rows"]
+            field = "t" if "t" in rows[0] else "t_fwd_bwd"
+            classes[key] = {
+                "winner": {k: e[k] for k in ("split",) if k in e},
+                "t_best_ms": e["t_best"] * 1e3,
+                "t_default_ms": e["t_default"] * 1e3,
+                "t_ref_ms": e["t_ref"] * 1e3,
+                "t_lib_ms": None if e["t_lib"] is None else e["t_lib"] * 1e3,
+                "speedup_vs_default": e["speedup_vs_default"],
+                "candidates_ms": {
+                    str(r.get("split", "kernel")): r[field] * 1e3
+                    for r in rows if r["backend"] == "kernel"},
+                "shape": bench["sweep"][key]["shape"]}
+            log("autotune", cls=key, **classes[key])
+        log("autotune", sweep_seconds=sweep_s,
+            decode_splits=bench["decode_splits"], meta=table["meta"])
+        confirm = _confirm_splits(autotune.choose_decode_splits(
+            {k: v for k, v in bench["sweep"].items()
+             if k.startswith("flash_decode")}))
+        log("autotune", confirmed_splits=confirm)
+        slow = {k: c for k, c in confirm.items()
+                if not c["tuned_over_default"] <= 1 + SPLIT_CONFIRM_TOL}
+        if slow:
+            raise AssertionError(f"autotune: tuned splits slower than 256 "
+                                 f"when timed again: {slow}")
+        tuned = autotune.AutotuneTable(autotune.load_artifact(path))
+        resolve_us = _resolve_us(tuned)
+        log("autotune", resolve_us=resolve_us)
+        autotune.set_table(tuned)
+        # every split against the plain version, linear and paged
+        split_errs = {}
+        for d, h, h_kv in ((64, 8, 8), (112, 8, 8), (128, 12, 2),
+                           (160, 32, 8)):
+            for dt in (torch.bfloat16, torch.float32):
+                for sp in fd.SPLITS:
+                    errs = decode_case(f"split {sp}", 4, h, h_kv, 1300, d,
+                                       dt, [0, 1300, 777, 1], False,
+                                       split=sp, phase="autotune")
+                    worst = split_errs.setdefault(str(sp), {})
+                    for n, e in errs.items():
+                        worst[n] = max(worst.get(n, 0.0), e)
+        # ops' decode takes the table's split, whatever the capacity
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(11)
+        route = {}
+        for d in fd.HEAD_DIMS:
+            lengths = torch.tensor([1300, 5, 1000], device="cuda")
+            q, k, v, (kp, vp), pages = _decode_inputs(
+                gen, 3, 8, 2, 1300, d, torch.bfloat16, lengths, 16)
+            sp = tuned.lookup("flash_decode", 1300, d, torch.bfloat16,
+                              "cuda")["split"]
+            route[d] = {"split": sp, "linear": bool(torch.equal(
+                ops.flash_decode(q, k, v, lengths),
+                fd.flash_decode(q, k, v, lengths, split=sp))),
+                "paged": bool(torch.equal(
+                    ops.flash_decode_paged(q, kp, vp, pages, lengths),
+                    fd.flash_decode_paged(q, kp, vp, pages, lengths,
+                                          split=sp)))}
+        log("autotune", ops_decode_takes_the_tuned_split=route)
+        if not all(r["linear"] and r["paged"] for r in route.values()):
+            raise AssertionError(f"autotune: ops' decode is not the tuned "
+                                 f"split: {route}")
+        # the engines' identities under the tuned table and forced splits
+        identities = {}
+        for label, payload in (("tuned", None),
+                               ("split 128", _forced_table(128)),
+                               ("split 512", _forced_table(512))):
+            if payload is not None:
+                autotune.set_table(autotune.AutotuneTable(payload))
+            entry = autotune.lookup("flash_decode", 1280, 64,
+                                    torch.float32, "cuda")
+            took = (entry or autotune.DEFAULTS["flash_decode"])["split"]
+            row = _engine_small(phase="autotune", long=True)
+            identities[label] = {"split": took, "engine_vs_solo":
+                                 row["engine_vs_solo"]["identical"],
+                                 "paged_vs_dense":
+                                 row["paged_vs_dense"]["identical"],
+                                 "prefix_shared_vs_private":
+                                 row["prefix_shared_vs_private"]["identical"],
+                                 "of": row["requests"]}
+        log("autotune", identities=identities)
+    finally:
+        autotune.set_table(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log("autotune", seconds=seconds)
+    return {"decode_splits": bench["decode_splits"],
+            "candidates": list(fd.SPLITS), "classes": classes,
+            "max_row_rel_err_by_split": split_errs, "confirmed": confirm,
+            "resolve_us": resolve_us, "identities": identities,
+            "sweep_seconds": sweep_s, "seconds": seconds, "table": table}
+
+
+# ---------------------------------------------------------------------- #
+# phase 18: the fleet
+# ---------------------------------------------------------------------- #
+FLEET_BATCH = 4
+# checkpoint_every of the fleet runs without and with the kill: at the end
+# of each lease only, and after every second step of a job too (writes
+# the kill, on a heartbeat once a0 has stepped twice, may cut into)
+FLEET_CKPT_EVERY = (0, 2)
+
+
+def _fleet_plan():
+    """The reference fleet test's replay plan (``tests/test_fleet.py``
+    ``_replay_plan``) through the port's simulator copy: donor A spans
+    both GPUs, B and C form a 3-way sharing group with donor
+    reconfigurations, D queues; 8 phases, 16 steps."""
+    from repro_torch.core import (ClusterState, InterferenceModel, Job,
+                                  PerfParams, Simulator)
+    from repro_torch.core.schedulers import SJF_BSBF
+    from repro_torch.launch.cluster import plan_from_sim
+    gb = 2 ** 30
+
+    def perf(beta):
+        return PerfParams(alpha_comp=0.01, beta_comp=beta, alpha_comm=0.0,
+                          beta_comm=0.0, msg_bytes=0.0, delta=2.0,
+                          mem_base=4.0 * gb, mem_per_sample=0.25 * gb,
+                          param_bytes=1e8, n_workers=1)
+    pa, pb = perf(0.01), perf(0.008)
+    t_a = pa.t_iter(4)
+    jobs = [Job(jid=0, model="m0", arrival=0.0, gpus=2, iters=6.0, batch=4,
+                perf=pa),
+            Job(jid=1, model="m1", arrival=2 * t_a, gpus=1, iters=3.0,
+                batch=4, perf=pb),
+            Job(jid=2, model="m1", arrival=4 * t_a, gpus=1, iters=4.0,
+                batch=4, perf=pb),
+            Job(jid=3, model="m0", arrival=6 * t_a, gpus=1, iters=3.0,
+                batch=4, perf=pa)]
+    cap = pa.mem_bytes(2) + pb.mem_bytes(2) + 0.25 * 0.25 * gb
+    interf = InterferenceModel()
+    for a in ("m0", "m1"):
+        for b in ("m0", "m1"):
+            interf.set_pair(a, b, 1.3, 1.3)
+    sim = Simulator(ClusterState(n_servers=1, gpus_per_server=2,
+                                 gpu_capacity_bytes=cap),
+                    jobs, SJF_BSBF(donor_reconfig=True), interference=interf,
+                    reconfig_on_release=True)
+    sim.run()
+    return plan_from_sim(sim.log, sim.jobs, sim.interference, cap,
+                         names={0: "A", 1: "B", 2: "C", 3: "D"})
+
+
+def _lease_lines(ckdir: str) -> list:
+    """The per-lease JSON lines the agents printed to their logs."""
+    out = []
+    for name in sorted(os.listdir(ckdir)):
+        if name.endswith(".log"):
+            with open(os.path.join(ckdir, name)) as f:
+                out += [json.loads(ln) for ln in f
+                        if ln.startswith('{"agent"')]
+    return out
+
+
+def phase_fleet():
+    """whisper-tiny at full size (4 + 4 layers, 1500 frames, decoder seq
+    448, bf16), seeds 0-3, on the fleet test's replay plan: the
+    single-host ``ScheduleExecutor`` (each job checkpointed as it
+    finishes, before the executor releases its state), then a master
+    with 2 agent processes sharing this card (a checkpoint at the end of
+    each lease), then the same with agent a0 SIGKILLed once it has
+    stepped twice (a checkpoint after every second step too). Both masters
+    start their agents first, so the agents' start (importing torch
+    takes seconds) overlaps the single-host run. Every job finishes with
+    the single-host steps, loss and checkpoint CRC, exactly; in the
+    killed run a0's death is detected under ``dead_after`` + 1 s and its
+    lease re-dispatched; without the kill the agents' flash launches add
+    up to the single host's. Prints each lease's seconds, peak memory
+    and launches."""
+    import contextlib
+    import shutil
+    import torch
+    from repro_torch.checkpoint import checkpoint_crc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cluster import JobSpec, ScheduleExecutor
+    from repro_torch.launch.fleet import (ChaosKiller, FleetConfig,
+                                          FleetMaster, KillSpec)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()          # room for the agents' own contexts
+    cfg = get_config("whisper-tiny")
+    specs = {n: JobSpec(cfg, batch=FLEET_BATCH, seq=WHISPER_SEQ, seed=i)
+             for i, n in enumerate("ABCD")}
+    plan = _fleet_plan()
+    totals = {}
+    for ph in plan.phases:
+        for name, q in ph.quotas:
+            totals[name] = totals.get(name, 0) + q
+    log("fleet", config=cfg.name, batch=FLEET_BATCH, decoder_seq=WHISPER_SEQ,
+        encoder_seq=cfg.encoder_seq, dtype=cfg.dtype, reduced="nothing",
+        phases=len(plan.phases), steps=totals,
+        groups=max(len(g) for ph in plan.phases for g in ph.groups),
+        checkpoint_every=FLEET_CKPT_EVERY)
+
+    class FinalCheckpoints(ScheduleExecutor):
+        def finish(self, name):
+            self.checkpoint(name)
+            return super().finish(name)
+
+    root = _checkpoint_dir(16 * 10 ** 9)
+    paths = {}
+    runs = (("fleet", FleetConfig(checkpoint_every=FLEET_CKPT_EVERY[0]),
+             None),
+            ("fleet, a0 SIGKILLed", FleetConfig(
+                checkpoint_every=FLEET_CKPT_EVERY[1], step_sleep=0.3,
+                heartbeat_interval=0.1, suspect_after=0.5, dead_after=1.0),
+             ChaosKiller([KillSpec(agent="a0", after_steps=2)])))
+    try:
+        with contextlib.ExitStack() as stack:
+            t0 = time.perf_counter()
+            masters = []
+            for i, (label, fcfg, chaos) in enumerate(runs):
+                m = stack.enter_context(FleetMaster(
+                    os.path.join(root, f"fleet{i}"), config=fcfg,
+                    chaos=chaos))
+                m.start(0)
+                for _ in range(2):
+                    m.spawn_agent()
+                masters.append(m)
+            ref_dir = os.path.join(root, "single_host")
+            os.makedirs(ref_dir)
+            _reset_all()
+            t1 = time.perf_counter()
+            with FinalCheckpoints(checkpoint_dir=ref_dir) as ex:
+                for name, spec in specs.items():
+                    ex.submit(name, spec, totals[name])
+                ref = ex.execute(plan)
+            single_s = time.perf_counter() - t1
+            paths["single host"] = _launches()
+            files = {n: os.path.join(ref_dir, f"{n}.npz") for n in specs}
+            crcs = {n: checkpoint_crc(p) for n, p in files.items()}
+            log("fleet", run="single host", seconds=single_s,
+                steps={n: r["steps"] for n, r in ref.items()},
+                loss={n: r["loss"] for n, r in ref.items()}, crc=crcs,
+                checkpoint_bytes=os.path.getsize(files["A"]),
+                checkpoints=ex.checkpoints_written,
+                launches=paths["single host"])
+            shutil.rmtree(ref_dir)
+            for m, (label, fcfg, chaos) in zip(masters, runs):
+                m.wait_for_agents(2)
+                t1 = time.perf_counter()
+                rep = m.run_plan(plan, specs)
+                seconds = time.perf_counter() - t1
+                m.shutdown()
+                _fleet_run(label, m, fcfg, chaos, rep, ref, crcs, seconds,
+                           agents_up=t1 - t0, paths=paths)
+                shutil.rmtree(m.checkpoint_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("fleet", seconds=time.perf_counter() - t_phase)
+    return paths
+
+
+def _fleet_run(label, m, fcfg, chaos, rep, ref, crcs, seconds, agents_up,
+               paths) -> None:
+    """One fleet run's row and gates (see ``phase_fleet``)."""
+    leases = _lease_lines(m.checkpoint_dir)
+    launches = {}
+    for ln in leases:
+        for k, n in ln["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    paths[f"{label}, agents"] = launches
+    dead = [e for e in m.events if e["kind"] == "agent_dead"]
+    row = {"run": label, "seconds": seconds,
+           "agents_up_after_seconds": agents_up,
+           "checkpoint_every": fcfg.checkpoint_every,
+           "steps": {n: r["steps"] for n, r in rep.items()},
+           "loss_equal": {n: rep[n]["loss"] == ref[n]["loss"] for n in ref},
+           "crc_equal": {n: rep[n]["crc"] == crcs[n] for n in ref},
+           "redispatches": m.stats["redispatches"],
+           "fenced": m.stats["fenced"], "steps_lost": m.stats["steps_lost"],
+           "agent_dead": [{k: e[k] for k in (
+               "agent", "reason", "detection_latency", "killed")}
+               for e in dead],
+           "leases": [{k: ln[k] for k in (
+               "agent", "lease", "members", "seconds", "walltime",
+               "peak_bytes", "launches")} for ln in leases],
+           "peak_bytes_by_agent": {
+               a: max(ln["peak_bytes"] or 0 for ln in leases
+                      if ln["agent"] == a)
+               for a in sorted({ln["agent"] for ln in leases})},
+           "launches": launches}
+    log("fleet", **row)
+    bad = [n for n in ref
+           if not (rep[n]["finished"] and rep[n]["steps"] == ref[n]["steps"]
+                   and row["loss_equal"][n] and row["crc_equal"][n])]
+    if bad:
+        raise AssertionError(f"fleet: {label}: jobs {bad} differ from the "
+                             "single host")
+    if chaos is None:
+        if launches != paths["single host"]:
+            raise AssertionError(f"fleet: agents launched {launches}, the "
+                                 f"single host {paths['single host']}")
+    elif not (len(chaos.kills) == 1 and dead and dead[0]["agent"] == "a0"
+              and dead[0]["killed"]
+              and dead[0]["detection_latency"] < fcfg.dead_after + 1.0
+              and m.stats["redispatches"] >= 1):
+        raise AssertionError(f"fleet: the kill was not detected and "
+                             f"recovered: {row}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3299,25 +3834,40 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    from repro_torch.kernels import autotune
+    # every phase runs the kernels' defaults (no table installed), as the
+    # smoke did before there was a table; ``autotune`` installs its own
+    # and ``hybrid_serve`` compares one decode run under it
+    autotune.set_table(None)
     t0 = time.perf_counter()
-    phase_build()
-    errs, timing = phase_parity()
-    launches = dict(phase_solo())
-    phase_pair()
-    launches_calibrate = phase_calibrate()
-    launches_replay = phase_replay()
-    phase_policies()
-    launches_recovery = phase_recovery()
-    launches_train = phase_train()
-    phase_profile()
-    hybrid = phase_hybrid()
+    seconds = {}
+
+    def run(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__[6:]] = time.perf_counter() - t
+        return out
+
+    run(phase_build)
+    errs, timing = run(phase_parity)
+    launches = dict(run(phase_solo))
+    run(phase_pair)
+    launches_calibrate = run(phase_calibrate)
+    launches_replay = run(phase_replay)
+    run(phase_policies)
+    launches_recovery = run(phase_recovery)
+    launches_train = run(phase_train)
+    run(phase_profile)
+    hybrid = run(phase_hybrid)
     launches.update(ssd_fwd=hybrid["ssd_fwd"], ssd_bwd=hybrid["ssd_bwd"])
-    phase_accum()
-    launches["flash_decode"] = phase_serve()["flash_decode"]
-    launches["flash_decode_paged"] = phase_engine()["flash_decode_paged"]
-    serve_paths = phase_hybrid_serve()
-    family_paths = phase_families()
-    last_paths = phase_xlstm_whisper()
+    run(phase_accum)
+    launches["flash_decode"] = run(phase_serve)["flash_decode"]
+    launches["flash_decode_paged"] = run(phase_engine)["flash_decode_paged"]
+    tuned = run(phase_autotune)
+    serve_paths = run(phase_hybrid_serve, tuned["table"])
+    family_paths = run(phase_families)
+    last_paths = run(phase_xlstm_whisper)
+    fleet_paths = run(phase_fleet)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ssd
@@ -3370,11 +3920,33 @@ def main() -> int:
         kernels[-1]["head_dims"] = list(head_dims[name])
         if name in DECODE_INSTANCES:
             kernels[-1]["instantiations"] = DECODE_INSTANCES[name]
+            # the split variants: candidates, the tuned split per
+            # (head_dim, dtype), each class's time by split, each split's
+            # largest row error against the plain version
+            kind = name + "|"
+            kernels[-1]["splits"] = {
+                "candidates": tuned["candidates"], "default": fd.SPLIT,
+                "tuned": tuned["decode_splits"],
+                "confirmed": tuned["confirmed"],
+                "classes": {k: {f: c[f] for f in (
+                    "candidates_ms", "t_ref_ms", "t_lib_ms", "winner")}
+                    for k, c in tuned["classes"].items()
+                    if k.startswith(kind)},
+                "max_row_rel_err": {
+                    sp: e[name] for sp, e in
+                    tuned["max_row_rel_err_by_split"].items()}}
+        # the fleet phase's counts: the single host in this process, the
+        # agents' summed from their per-lease lines
+        fleet = {path: n[name] for path, n in fleet_paths.items()
+                 if n.get(name)}
+        if fleet:
+            kernels[-1]["launches_fleet"] = fleet
         for key in ("at_d112", "at_d160", "at_d160_f32", "ring",
                     "with_state_in_out", "at_cross"):
             if key in t:
                 kernels[-1][key] = t[key]
-    log("done", seconds=time.perf_counter() - t0)
+    log("done", seconds=time.perf_counter() - t0, phases=seconds,
+        limit_s=1200)
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

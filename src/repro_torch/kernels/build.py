@@ -36,9 +36,9 @@ LIBRARIES = {
         "repro_flash_bwd_dkdv": [_P] * 8 + [_I] * 7 + [_F, _P],
     }),
     "flash_decode": (["flash_decode.cu"], {
-        "repro_flash_decode_workspace": [_I] * 4,
-        "repro_flash_decode": [_P] * 6 + [_I] * 6 + [_F, _P],
-        "repro_flash_decode_paged": [_P] * 7 + [_I] * 7 + [_F, _P],
+        "repro_flash_decode_workspace": [_I] * 5,
+        "repro_flash_decode": [_P] * 6 + [_I] * 7 + [_F, _P],
+        "repro_flash_decode_paged": [_P] * 7 + [_I] * 8 + [_F, _P],
     }),
     "ssd": (["ssd.cu"], {
         "repro_ssd_fwd_state": [_P] * 7 + [_I] * 6 + [_P],

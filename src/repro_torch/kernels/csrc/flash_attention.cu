@@ -40,15 +40,14 @@
 // divide). Every sum is f32. dQ and dK/dV round dS (dS^T, P^T) to bf16 as
 // one operand, as FlashAttention-2 does; the forward enters P as bf16 hi + lo, two products, because the O
 // it writes feeds the backward's delta = rowsum(dO O), where dP - delta
-// cancels. Above D = 128 (stablelm-12b's D = 160) a warp's dK and dV
-// accumulators alone would take 160 f32 registers a thread beside the 64
-// of S^T and dP^T, past the 255 a thread has: dK/dV then runs as two
-// passes over the same q tiles, one kernel launch each, dV = P^T dO first
-// (no dP^T), then dK = dS^T Q. Each pass computes S^T = K Q^T, so the two
-// do five products a tile where one pass does four; they also read Q, dO,
-// lse and delta twice. Built at D = 160, the one-pass form takes 255
-// registers and spills (112 bytes stored, 80 loaded); flash_variants.py
-// times it against the two passes.
+// cancels. At D = 160 (stablelm-12b) a warp's dK and dV accumulators
+// take 160 f32 registers a thread beside the 64 of S^T and dP^T, past the
+// 255 a thread has: the kernel spills there (112-148 bytes stored, 80
+// loaded), and is still faster than splitting dV and dK into two passes
+// over the same q tiles (0.633 against 0.791 ms at stablelm-12b's layer
+// shape on an H100, with the same bits: each accumulator sums in the same
+// order either way), which would compute S^T twice and read Q, dO, lse
+// and delta twice.
 //
 // f32 (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkdv_kernel): the
 // first, simple design. Each block keeps its q (or kv) tile and the
@@ -781,9 +780,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // P^T and dP^T stay in f32 registers beside the dK and dV accumulators:
 // at D = 128 that is 255 registers a thread and no spills (-Xptxas -v).
-// PASS 0 computes dK and dV together; above D = 128 the host runs PASS 1
-// (dV alone: no dP^T, no dK accumulator) then PASS 2 (dK alone).
-template <int D, int PASS>
+template <int D>
 __global__ void __launch_bounds__(NTH)
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -791,7 +788,6 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
                           int causal, int window, float scale) {
   constexpr int LD = D + 8, KD = D / 16, ND = D / 8, T = 64 * LD, NQ = BQ / 8;
-  constexpr bool DO_V = PASS != 2, DO_K = PASS != 1;
   extern __shared__ __align__(16) unsigned char smem_dkdv[];
   bf16* sK = reinterpret_cast<bf16*>(smem_dkdv);
   bf16* sV = sK + T;
@@ -863,18 +859,16 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     for (int ks = 0; ks < KD; ++ks) {
       uint32_t ak[4], av[4];
       frag_a<LD>(ak, sK, wr, ks * 16);
-      if constexpr (DO_K) frag_a<LD>(av, sV, wr, ks * 16);
+      frag_a<LD>(av, sV, wr, ks * 16);
 #pragma unroll
       for (int np = 0; np < NQ / 2; ++np) {
         uint32_t b[4];
         frag_b<LD>(b, tQ, np * 16, ks * 16);
         mma(st[2 * np], ak, b[0], b[1]);
         mma(st[2 * np + 1], ak, b[2], b[3]);
-        if constexpr (DO_K) {
-          frag_b<LD>(b, tO, np * 16, ks * 16);
-          mma(dp[2 * np], av, b[0], b[1]);
-          mma(dp[2 * np + 1], av, b[2], b[3]);
-        }
+        frag_b<LD>(b, tO, np * 16, ks * 16);
+        mma(dp[2 * np], av, b[0], b[1]);
+        mma(dp[2 * np + 1], av, b[2], b[3]);
       }
     }
     // P^T = exp(scale S^T - lse), dS^T = P^T (dP^T - delta), per q column
@@ -889,7 +883,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
           float p = exp2f(fmaf(st[n][2 * h + e], sl2, -l2));
           if (edge && !(mask.row(qp) && mask.ok(qp, k0 + wr + g + 8 * h))) p = 0.f;
           st[n][2 * h + e] = p;
-          if constexpr (DO_K) dp[n][2 * h + e] = p * (dp[n][2 * h + e] - de);
+          dp[n][2 * h + e] = p * (dp[n][2 * h + e] - de);
         }
       }
     // dV += P^T dO and dK += dS^T Q, P^T and dS^T as bf16 A fragments
@@ -906,16 +900,12 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
       for (int dq = 0; dq < KD; ++dq) {
         uint32_t b[4];
-        if constexpr (DO_V) {
-          frag_bt<LD>(b, tO, kk * 16, dq * 16);
-          mma(dva[2 * dq], pa, b[0], b[1]);
-          mma(dva[2 * dq + 1], pa, b[2], b[3]);
-        }
-        if constexpr (DO_K) {
-          frag_bt<LD>(b, tQ, kk * 16, dq * 16);
-          mma(dka[2 * dq], sa, b[0], b[1]);
-          mma(dka[2 * dq + 1], sa, b[2], b[3]);
-        }
+        frag_bt<LD>(b, tO, kk * 16, dq * 16);
+        mma(dva[2 * dq], pa, b[0], b[1]);
+        mma(dva[2 * dq + 1], pa, b[2], b[3]);
+        frag_bt<LD>(b, tQ, kk * 16, dq * 16);
+        mma(dka[2 * dq], sa, b[0], b[1]);
+        mma(dka[2 * dq + 1], sa, b[2], b[3]);
       }
     }
   }
@@ -929,12 +919,10 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
         const int c = n * 8 + 2 * t;
-        if constexpr (DO_K)
-          *reinterpret_cast<__nv_bfloat162*>(dk + row + c) =
-              __floats2bfloat162_rn(dka[n][2 * h] * scale, dka[n][2 * h + 1] * scale);
-        if constexpr (DO_V)
-          *reinterpret_cast<__nv_bfloat162*>(dv + row + c) =
-              __floats2bfloat162_rn(dva[n][2 * h], dva[n][2 * h + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dk + row + c) =
+            __floats2bfloat162_rn(dka[n][2 * h] * scale, dka[n][2 * h + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + row + c) =
+            __floats2bfloat162_rn(dva[n][2 * h], dva[n][2 * h + 1]);
       }
     }
   }
@@ -1113,36 +1101,19 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const 
   return (int)cudaGetLastError();
 }
 
-template <int D, int PASS>
-int bwd_dkdv_pass(const void* q, const void* k, const void* v, const void* dout,
-                  const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
-                  int sk, int causal, int window, float scale, cudaStream_t st) {
-  const size_t smem = dkdv_smem(D);
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<D, PASS>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((sk + BK - 1) / BK, bh);
-  flash_bwd_dkdv_mma_kernel<D, PASS><<<grid, NTH, smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dk,
-      (bf16*)dv, sq, sk, causal, window, scale);
-  return (int)cudaGetLastError();
-}
-
-// one pass up to D = 128; above it dV, then dK (see the kernel)
 template <int D>
 int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
              const float* delta, void* dk, void* dv, int bh, int sq, int sk, int causal,
              int window, float scale, cudaStream_t st) {
-  if constexpr (D <= 128) {
-    return bwd_dkdv_pass<D, 0>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, window,
-                               scale, st);
-  } else {
-    const int e = bwd_dkdv_pass<D, 1>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal,
-                                      window, scale, st);
-    if (e != 0) return e;
-    return bwd_dkdv_pass<D, 2>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, window,
-                               scale, st);
-  }
+  const size_t smem = dkdv_smem(D);
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((sk + BK - 1) / BK, bh);
+  flash_bwd_dkdv_mma_kernel<D><<<grid, NTH, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dk,
+      (bf16*)dv, sq, sk, causal, window, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tc

@@ -28,8 +28,10 @@
 //
 // Split-K ("flash-decoding"). The TPU kernels walk the kv blocks as a
 // sequential grid axis and carry m / l / acc in VMEM scratch. Here a block
-// of 8 warps owns one (slot, kv head, split): the SPLIT key positions
-// [i SPLIT, (i + 1) SPLIT) of the slot, and every query head of that kv
+// of 8 warps owns one (slot, kv head, split): the `split` key positions
+// [i split, (i + 1) split) of the slot (split is an argument, 1 to
+// SPLIT_MAX; the wrappers take 256 unless the autotuned table or the
+// caller names another), and every query head of that kv
 // head's group (up to 8 of them; a larger group takes several blocks), so
 // each K and V row is read from memory once for the whole group. Its
 // sub-warps take the split's keys in turn (sub-warp j takes keys k0 + j,
@@ -42,8 +44,11 @@
 // load from device memory.
 //
 // Which bits a row gets. Split boundaries and the merge order depend only
-// on key positions and the slot's length: never on B, H, the table width,
-// the cache's capacity or the card. So the linear and the paged kernel
+// on key positions, the slot's length and `split`: never on B, H, the
+// table width, the cache's capacity or the card. A different split sums
+// in another order and gives other bits, so every decode call of one
+// (head_dim, dtype) must take the same split (kernels/autotune.py keeps
+// one split per pair). So the linear and the paged kernel
 // give the same bits on the same cache rows, and a slot gives the same
 // bits alone and among other slots (engine == solo generation).
 //
@@ -59,7 +64,9 @@
 // Plain C interface for ctypes. Every launching entry returns
 // cudaGetLastError() after its launches (0 on success); launches go to the
 // caller's stream. repro_flash_decode_workspace returns the size of the
-// split workspace, so the split size has one owner, this file.
+// split workspace for a given split, so its layout has one owner, this
+// file. A split outside 1..SPLIT_MAX returns cudaErrorInvalidValue
+// without launching (the workspace size: -1).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -70,7 +77,7 @@ namespace {
 
 constexpr int NW = 8;          // warps per block
 constexpr int NT = NW * 32;    // threads per block
-constexpr int SPLIT = 256;     // key positions per split
+constexpr int SPLIT_MAX = 512; // key positions per split, at most (sm_tab)
 
 constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
 
@@ -160,13 +167,13 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const int* __restrict__ lengths,
                           const int* __restrict__ pages, float* __restrict__ part_acc,
                           float* __restrict__ part_ml, int h, int h_kv, int rows, int p_tab,
-                          int n_split, float scale) {
+                          int split, int n_split, float scale) {
   using G = Geo<T, D>;
   constexpr int NV = G::NV, EPL = G::EPL, LPK = G::LPK, KPW = G::KPW;
   constexpr int NSUB = G::NSUB, U = G::U;
   __shared__ float sm_acc[NW][GM][D];
   __shared__ float sm_m[NW][GM], sm_l[NW][GM];
-  __shared__ int sm_tab[SPLIT];
+  __shared__ int sm_tab[SPLIT_MAX];
 
   const int group = h / h_kv, n_hc = (group + GM - 1) / GM;
   const int hc = blockIdx.x % n_hc, kvh = blockIdx.x / n_hc % h_kv;
@@ -182,7 +189,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // page size and the table covers p_tab pages
   const int cap = PAGED ? p_tab * rows : rows;
   const int n = min(max(lengths[b], 0), cap);
-  const int k0 = sp * SPLIT, k1 = min(k0 + SPLIT, n);
+  const int k0 = sp * split, k1 = min(k0 + split, n);
   if (k0 >= n) return;  // the same for the whole block
 
   int first = 0;
@@ -346,7 +353,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // grid B * H, D threads rounded up to whole warps (MT): each (slot,
-// head)'s splits, the ceil(n / SPLIT) that its length n covers, summed in
+// head)'s splits, the ceil(n / split) that its length n covers, summed in
 // split order (0 for a slot of length 0). Each thread below D sums its
 // channel; the splits' weights exp(m_i - m) are taken MT at a time into
 // shared memory, so no thread walks the (m, l) list alone.
@@ -354,11 +361,11 @@ template <typename T, int D, int MT = (D + 31) / 32 * 32>
 __global__ void __launch_bounds__(MT)
 flash_decode_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
                           const int* __restrict__ lengths, T* __restrict__ o, int h, int cap,
-                          int n_split) {
+                          int split, int n_split) {
   __shared__ float sm_f[MT], sm_l[MT], sm_m[MT / 32];
   const int bh = blockIdx.x, c = threadIdx.x;
   const int n = min(max(lengths[bh / h], 0), cap);
-  const int ns = (n + SPLIT - 1) / SPLIT;
+  const int ns = (n + split - 1) / split;
   const float* ml = part_ml + (size_t)bh * n_split * 2;
   const float* pa = part_acc + (size_t)bh * n_split * D + c;
   // the largest m: a max is exact in any order
@@ -393,10 +400,10 @@ flash_decode_merge_kernel(const float* __restrict__ part_acc, const float* __res
 
 template <typename T, int D, int GM, bool PAGED>
 int launch_gm(const void* q, const void* k, const void* v, const int* lengths, const int* pages,
-              void* o, float* work, int b, int h, int h_kv, int rows, int p_tab, float scale,
-              cudaStream_t st) {
+              void* o, float* work, int b, int h, int h_kv, int rows, int p_tab, int split,
+              float scale, cudaStream_t st) {
   const int cap = PAGED ? p_tab * rows : rows;
-  const int n_split = (cap + SPLIT - 1) / SPLIT;
+  const int n_split = (cap + split - 1) / split;
   float* part_acc = work;
   float* part_ml = work + (size_t)b * h * n_split * D;
   if (n_split > 0) {  // an empty cache has no split, and its merge writes 0
@@ -404,12 +411,12 @@ int launch_gm(const void* q, const void* k, const void* v, const int* lengths, c
     dim3 grid(b * h_kv * n_hc, n_split);
     flash_decode_split_kernel<T, D, GM, PAGED><<<grid, NT, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, lengths, pages, part_acc, part_ml, h, h_kv,
-        rows, p_tab, n_split, scale);
+        rows, p_tab, split, n_split, scale);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  flash_decode_merge_kernel<T, D><<<b * h, (D + 31) / 32 * 32, 0, st>>>(part_acc, part_ml, lengths,
-                                                                        (T*)o, h, cap, n_split);
+  flash_decode_merge_kernel<T, D><<<b * h, (D + 31) / 32 * 32, 0, st>>>(
+      part_acc, part_ml, lengths, (T*)o, h, cap, split, n_split);
   return (int)cudaGetLastError();
 }
 
@@ -417,17 +424,18 @@ int launch_gm(const void* q, const void* k, const void* v, const int* lengths, c
 // group takes ceil(group / 8) blocks of 8
 template <typename T, int D, bool PAGED, int GM = 8>
 int launch(const void* q, const void* k, const void* v, const int* lengths, const int* pages,
-           void* o, void* work, int b, int h, int h_kv, int rows, int p_tab, float scale,
-           cudaStream_t st) {
+           void* o, void* work, int b, int h, int h_kv, int rows, int p_tab, int split,
+           float scale, cudaStream_t st) {
+  if (split < 1 || split > SPLIT_MAX) return (int)cudaErrorInvalidValue;
   if (b * h == 0) return 0;
   if (h_kv <= 0 || h % h_kv) return (int)cudaErrorInvalidValue;
   if constexpr (GM > 1) {
     if (h / h_kv < GM)
       return launch<T, D, PAGED, GM - 1>(q, k, v, lengths, pages, o, work, b, h, h_kv, rows,
-                                         p_tab, scale, st);
+                                         p_tab, split, scale, st);
   }
   return launch_gm<T, D, GM, PAGED>(q, k, v, lengths, pages, o, (float*)work, b, h, h_kv, rows,
-                                    p_tab, scale, st);
+                                    p_tab, split, scale, st);
 }
 
 }  // namespace
@@ -450,20 +458,21 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, cons
 extern "C" {
 
 // Floats of the split workspace for B slots of H heads of D and a cache of
-// `capacity` key positions a slot (S, or P * page_size when paged): (acc,
-// m, l) for every (slot, head, split), B * H * ceil(capacity / SPLIT) *
-// (D + 2). -1 for a negative size or one that does not fit an int.
-int repro_flash_decode_workspace(int b, int h, int d, int capacity) {
-  if (b < 0 || h < 0 || d < 0 || capacity < 0) return -1;
-  const long long n = (long long)b * h * ((capacity + SPLIT - 1LL) / SPLIT) * (d + 2);
+// `capacity` key positions a slot (S, or P * page_size when paged), cut
+// into splits of `split` positions: (acc, m, l) for every (slot, head,
+// split), B * H * ceil(capacity / split) * (D + 2). -1 for a negative
+// size, a split outside 1..SPLIT_MAX, or a size that does not fit an int.
+int repro_flash_decode_workspace(int b, int h, int d, int capacity, int split) {
+  if (b < 0 || h < 0 || d < 0 || capacity < 0 || split < 1 || split > SPLIT_MAX) return -1;
+  const long long n = (long long)b * h * ((capacity + split - 1LL) / split) * (d + 2);
   return n > INT32_MAX ? -1 : (int)n;
 }
 
 // q, o: (B, 1, H, D); k, v: (B, S, H_kv, D); lengths: (B,) int32
 int repro_flash_decode(const void* q, const void* k, const void* v, const void* lengths, void* o,
-                       void* work, int b, int h, int h_kv, int s, int d, int dtype, float scale,
-                       void* stream) {
-  DISPATCH(false, q, k, v, (const int*)lengths, nullptr, o, work, b, h, h_kv, s, 0, scale,
+                       void* work, int b, int h, int h_kv, int s, int d, int dtype, int split,
+                       float scale, void* stream) {
+  DISPATCH(false, q, k, v, (const int*)lengths, nullptr, o, work, b, h, h_kv, s, 0, split, scale,
            (cudaStream_t)stream)
 }
 
@@ -472,9 +481,9 @@ int repro_flash_decode(const void* q, const void* k, const void* v, const void* 
 int repro_flash_decode_paged(const void* q, const void* k_pool, const void* v_pool,
                              const void* pages, const void* lengths, void* o, void* work, int b,
                              int h, int h_kv, int page_size, int p_tab, int d, int dtype,
-                             float scale, void* stream) {
+                             int split, float scale, void* stream) {
   DISPATCH(true, q, k_pool, v_pool, (const int*)lengths, (const int*)pages, o, work, b, h, h_kv,
-           page_size, p_tab, scale, (cudaStream_t)stream)
+           page_size, p_tab, split, scale, (cudaStream_t)stream)
 }
 
 }  // extern "C"

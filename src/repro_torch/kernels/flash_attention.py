@@ -5,9 +5,9 @@
 Layout is the kernels' (B, H, S, D), contiguous and 16-byte aligned,
 bf16 or f32, head_dim 64, 112 (zamba2-7b's shared block), 128 or 160
 (stablelm-12b). In bf16 all three run on the tensor cores (``mma.sync``,
-``ldmatrix``, ``cp.async``; at head_dim 160 the dK/dV call launches two
-passes, dV then dK, one launch counted); in f32 all three run the scalar
-design, which holds them to 1e-5 of the plain version. Each
+``ldmatrix``, ``cp.async``; at head_dim 160 the one-pass dK/dV spills,
+and is still faster than a dV pass then a dK pass); in f32 all three run
+the scalar design, which holds them to 1e-5 of the plain version. Each
 wrapper routes on the device of the tensor it is given: a CPU tensor
 takes the plain PyTorch version (``ref.py``); a CUDA tensor launches the
 kernel or raises, never falls back. ``LAUNCHES`` counts the kernel

@@ -95,3 +95,24 @@ def test_ssd_forward_state_entry_takes_a_state_in_and_out():
                          "final_state"]
     argtypes = build.LIBRARIES["ssd"][1]["repro_ssd_fwd_state"]
     assert argtypes[4:7] == [ctypes.c_void_p] * 3
+
+
+@pytest.mark.parametrize("library,entry,name", [
+    ("flash_decode", "repro_flash_decode", "split"),
+    ("flash_decode", "repro_flash_decode_paged", "split")])
+def test_tuned_knob_is_the_int_before_the_scale(library, entry, name):
+    """The autotuned knob reaches the kernels as a C int: the decode
+    split, just before the float scale."""
+    params = _declarations(library)[entry]
+    names = [p.split()[-1].lstrip("*") for p in params]
+    i = names.index(name)
+    assert params[i].split()[0] == "int"
+    assert names[i + 1] == "scale"
+    argtypes = build.LIBRARIES[library][1][entry]
+    assert argtypes[i:i + 2] == [ctypes.c_int, ctypes.c_float]
+
+
+def test_decode_workspace_is_sized_by_the_split():
+    params = _declarations("flash_decode")["repro_flash_decode_workspace"]
+    assert [p.split()[-1] for p in params] == ["b", "h", "d", "capacity",
+                                               "split"]

@@ -51,7 +51,7 @@ def _err(got, want):
     ((1, 4, 1000, 128), torch.bfloat16, True, 0, 2 ** -7),
     ((2, 2, 320, 64), torch.bfloat16, False, 0, 2 ** -7),
     ((1, 4, 1000, 64), torch.bfloat16, True, 200, 2 ** -7),
-    # stablelm-12b's head_dim 160 (bf16 dK/dV in two passes)
+    # stablelm-12b's head_dim 160 (the bf16 dK/dV spills there)
     ((1, 4, 1000, 160), torch.float32, True, 0, 1e-5),
     ((2, 2, 320, 160), torch.float32, False, 0, 1e-5),
     ((1, 4, 1000, 160), torch.float32, True, 200, 1e-5),
@@ -303,6 +303,103 @@ def test_decode_kernels_match_plain(cuda, b, h, h_kv, s, d, dtype, tol):
     fits = lengths <= s
     assert not fits.all()
     assert torch.equal(out[fits], out_p[fits])
+
+
+# each split the autotuner may choose, at every head dim, linear and paged
+@pytest.mark.parametrize("split", fd.SPLITS)
+@pytest.mark.parametrize("b,h,h_kv,s,d,dtype,tol", [
+    (4, 8, 8, 1300, 64, torch.bfloat16, 2 ** -7),
+    (4, 8, 8, 1300, 112, torch.bfloat16, 2 ** -7),
+    (4, 12, 2, 1300, 128, torch.bfloat16, 2 ** -7),
+    (4, 32, 8, 1300, 160, torch.bfloat16, 2 ** -7),
+    (3, 8, 2, 1300, 128, torch.float32, 1e-5),
+    (3, 32, 8, 1300, 160, torch.float32, 1e-5),
+])
+def test_decode_splits_match_plain(cuda, split, b, h, h_kv, s, d, dtype,
+                                   tol):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    q, k, v, lengths, (kp, vp), pages = _decode_inputs(gen, b, h, h_kv, s,
+                                                       d, dtype)
+    out = fd.flash_decode(q, k, v, lengths, split=split)
+    out_p = fd.flash_decode_paged(q, kp, vp, pages, lengths, split=split)
+    g = h // h_kv
+    want = ref.flash_decode_ref(q, k.repeat_interleave(g, 2),
+                                v.repeat_interleave(g, 2), lengths)
+    want_p = ref.flash_decode_paged_ref(q, kp, vp, pages, lengths)
+    torch.cuda.synchronize()
+    assert float(out[0].abs().max()) == 0.0     # length 0 gives 0
+    rows = slice(1, None)
+    assert _err(out[rows], want[rows]) <= tol
+    assert _err(out_p[rows], want_p[rows]) <= tol
+    fits = lengths <= s
+    assert torch.equal(out[fits], out_p[fits])
+
+
+def test_decode_split_default_and_range(cuda):
+    """The wrappers' default is 256; a split past the kernel's staged
+    table (512) or below 1 is refused before any launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    q, k, v, lengths, _, _ = _decode_inputs(gen, 2, 4, 2, 700, 64,
+                                            torch.bfloat16)
+    assert torch.equal(fd.flash_decode(q, k, v, lengths),
+                       fd.flash_decode(q, k, v, lengths, split=256))
+    fd.reset_launches()
+    for bad in (0, fd.SPLIT_MAX + 1):
+        with pytest.raises(ValueError, match="split"):
+            fd.flash_decode(q, k, v, lengths, split=bad)
+    assert fd.LAUNCHES["flash_decode"] == 0
+
+
+def test_tuned_table_routes_the_decode_split(cuda):
+    """``ops`` takes the installed table's split for this card, one split
+    per (head_dim, dtype) whatever the capacity; an explicit split wins;
+    no table gives 256."""
+    from repro_torch.kernels import autotune, ops
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    q, k, v, lengths, (kp, vp), pages = _decode_inputs(gen, 3, 4, 2, 1300,
+                                                       64, torch.bfloat16)
+    key = autotune.shape_key("flash_decode", 4096, 64, torch.bfloat16)
+    autotune.set_table(autotune.AutotuneTable({
+        "version": autotune.AUTOTUNE_VERSION, "created": 0.0,
+        "meta": {"backend": "cuda",
+                 "device_name": torch.cuda.get_device_name(cuda)},
+        "entries": {key: {"backend": "kernel", "split": 128}}}))
+    try:
+        tuned = ops.flash_decode(q, k, v, lengths)       # capacity 1300
+        tuned_p = ops.flash_decode_paged(q, kp, vp, pages, lengths)
+        pinned = ops.flash_decode(q, k, v, lengths, split=512)
+    finally:
+        autotune.set_table(None)
+    plain = ops.flash_decode(q, k, v, lengths)
+    assert torch.equal(tuned, fd.flash_decode(q, k, v, lengths, split=128))
+    assert torch.equal(tuned_p, fd.flash_decode_paged(q, kp, vp, pages,
+                                                      lengths, split=128))
+    assert torch.equal(pinned, fd.flash_decode(q, k, v, lengths, split=512))
+    assert torch.equal(plain, fd.flash_decode(q, k, v, lengths, split=256))
+
+
+@pytest.mark.parametrize("d", [64, 128, 160])
+def test_one_pass_dkdv_matches_plain(cuda, d):
+    """The bf16 dK/dV is one kernel at every head_dim (at D = 160 it
+    spills, and still beats a dV pass then a dK pass): one launch a
+    call, within the bf16 limit of the plain version."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    shape = (1, 4, 1000, d)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    fa.reset_launches()
+    got = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta)
+    want = ref.attention_bwd_dkdv_ref(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_bwd_dkdv"] == 1
+    for g, w in zip(got, want):
+        assert _err(g, w) <= 2 ** -7
 
 
 @pytest.mark.parametrize("h,h_kv,d,dtype", [

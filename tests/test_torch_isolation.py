@@ -1,5 +1,5 @@
 """The port stands alone: importing every module of ``repro_torch``,
-``chip_smoke``, ``ssd_variants``, ``flash_variants`` and ``flash_bitwise``
+``chip_smoke``, ``ssd_variants`` and ``flash_bitwise``
 loads neither JAX nor the reference package."""
 import os
 import subprocess
@@ -17,7 +17,6 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import ssd_variants
-import flash_variants
 import flash_bitwise
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -33,7 +32,9 @@ for name in ("kernels.flash_attention", "kernels.flash_decode",
              "models.moe", "configs.glm4_9b", "configs.stablelm_12b",
              "configs.llama3_405b", "configs.granite_moe",
              "configs.llama4_maverick", "models.xlstm",
-             "configs.xlstm_1_3b", "configs.whisper_tiny"):
+             "configs.xlstm_1_3b", "configs.whisper_tiny",
+             "kernels.autotune", "launch.autotune", "launch.wire",
+             "launch.agent", "launch.fleet", "launch.fleet_cli"):
     assert "repro_torch." + name in names, name
 """
 
@@ -54,7 +55,6 @@ def test_no_source_of_the_port_names_jax_or_the_reference():
     bad = []
     paths = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "ssd_variants.py"),
-             os.path.join(ROOT, "flash_variants.py"),
              os.path.join(ROOT, "flash_bitwise.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
