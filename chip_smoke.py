@@ -24,8 +24,10 @@ two families: xlstm-1.3b (no kernel: its mLSTM and sLSTM are plain
 PyTorch, as the reference's are plain JAX) and whisper-tiny, whose
 cross-attention takes the flash kernels with Sk != Sq, backward
 included, and the linear decode kernel; the decode kernels' split
-tuned per shape class on the card; and the fleet, a master leasing
-whisper-tiny jobs to two agent processes that share the card. Phases,
+tuned per shape class on the card; the fleet, a master leasing
+whisper-tiny jobs to two agent processes that share the card; and the
+training driver on the reference's sharding plan as DTensors, with the
+dry-run of that plan on the production meshes. Phases,
 in order; each prints its own line and any failure exits non-zero:
 
 1. build    - builds the three kernel libraries (flash attention, flash
@@ -127,9 +129,11 @@ in order; each prints its own line and any failure exits non-zero:
               transient fault before segment 1: tokens those of the
               fault-free run, one retry; an exhausted budget raises.
 8. train    - ``launch.quickstart`` for 60 steps on the card (the loss
-              must fall; s/step), then ``launch.train.main`` on
-              minicpm-2b at full width and depth, bf16, B = 4, seq 2048,
-              accum 2, 3 steps: finite loss, exact flash launches.
+              must fall; s/step), then ``launch.train`` on minicpm-2b at
+              full width and depth, bf16, B = 4, seq 2048, accum 2, 3
+              steps, with a checkpoint (its CRC, losses and launches are
+              phase 19's yardstick): finite losses, exact flash
+              launches.
 9. profile  - one profiled step of each model: device time by kernel
               category and the device's busy share of the step.
 10. hybrid  - zamba2-7b at 36 of 81 layers through ``ScheduleExecutor``:
@@ -228,6 +232,20 @@ in order; each prints its own line and any failure exits non-zero:
               re-dispatched; without it the agents' launches sum to the
               single host's. Prints each lease's seconds, peak memory
               and launches, the checkpoint bytes, the detection latency.
+19. sharded - (a) phase 8's ``launch.train`` run again with
+              ``--distributed``: an ``nccl`` world of one, a (1, 1)
+              ('data', 'model') mesh, DTensor parameters at the
+              reference's FSDP x TP placements, the flash kernels on the
+              local blocks through ``local_map``. Required: every
+              parameter at its placements, per-step losses and the
+              checkpoint CRC bitwise phase 8's, flash launches equal to
+              phase 8's. Prints both runs' seconds a step and peak
+              memory. (b) ``launch.dryrun`` on the host, started with the
+              phase: minicpm-2b at train_4k on 16 x 16 and 2 x 16 x 16,
+              qwen2-vl-2b on 16 x 16, each on a fake process group of
+              256 or 512 ranks. Required: every record ``ok``. Prints
+              per-device FLOPs, collective bytes, argument and temporary
+              bytes against this card's memory, roofline terms.
 
 Every log line carries ``at_s``, the seconds since the script started;
 the ``done`` line gives each phase's seconds beside the 1200 s the
@@ -2243,15 +2261,22 @@ QUICKSTART_STEPS = 60
 TRAIN_ARGS = ["--arch", "minicpm-2b", "--dtype", "bfloat16", "--batch",
               str(BATCH), "--seq", str(SEQ), "--accum-steps", "2",
               "--steps", "3", "--log-every", "1"]
+# minicpm-2b's checkpoint: bf16 parameters and two f32 moments, 10 bytes
+# a parameter (2.7e9), with room to spare
+TRAIN_CKPT_BYTES = 32 * 10 ** 9
 
 
 def phase_train():
     """``launch.quickstart`` for 60 steps (the shrunk f32 minicpm-2b,
     structured batches, accum 2): the loss must fall. Then
-    ``launch.train.main`` on minicpm-2b at full width and depth, bf16,
-    B = 4, seq 2048, accum 2, 3 steps: a finite loss and exact flash
-    launch counts."""
+    ``launch.train`` on minicpm-2b at full width and depth, bf16, B = 4,
+    seq 2048, accum 2, 3 steps, with a checkpoint: a finite loss and
+    exact flash launch counts. Returns the launches and that run's
+    per-step losses, checkpoint CRC, seconds a step and peak memory,
+    which phase ``sharded`` holds its run against."""
+    import shutil
     import torch
+    from repro_torch.checkpoint import checkpoint_crc
     from repro_torch.configs import get_config
     from repro_torch.launch import quickstart, train
     t_phase = time.perf_counter()
@@ -2275,11 +2300,23 @@ def phase_train():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _reset_all()
-    t0 = time.perf_counter()
-    loss = train.main(TRAIN_ARGS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    _check_loss("train", loss)
+    ckdir = _checkpoint_dir(TRAIN_CKPT_BYTES)
+    try:
+        path = os.path.join(ckdir, "train.npz")
+        t0 = time.perf_counter()
+        res = train.run(TRAIN_ARGS + ["--checkpoint", path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        base = {"losses": res.losses, "crc": checkpoint_crc(path),
+                "checkpoint_bytes": os.path.getsize(path),
+                "s_per_step": res.loop_seconds / len(res.losses),
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    del res
+    for loss in base["losses"]:
+        _check_loss("train", loss)
     args = train.build_argparser().parse_args(TRAIN_ARGS)
     main_cfg = get_config(args.arch)
     if args.reduced:
@@ -2287,12 +2324,16 @@ def phase_train():
     launches["driver"] = _expect_launches(
         "train driver",
         _expect(main_cfg.n_layers, args.steps * args.accum_steps))
-    log("train", run="launch.train.main", args=" ".join(TRAIN_ARGS),
-        loss=loss, wall_s_with_init=wall, launches=launches["driver"],
-        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+    base["launches"] = launches["driver"]
+    log("train", run="launch.train", args=" ".join(TRAIN_ARGS),
+        losses=base["losses"], crc=base["crc"],
+        checkpoint_bytes=base["checkpoint_bytes"],
+        s_per_step=base["s_per_step"], wall_s_with_init_and_checkpoint=wall,
+        launches=launches["driver"],
+        max_memory_allocated_gb=base["max_memory_allocated_gb"],
         seconds=time.perf_counter() - t_phase)
     torch.cuda.empty_cache()
-    return launches
+    return launches, base
 
 
 # ---------------------------------------------------------------------- #
@@ -3823,6 +3864,177 @@ def _fleet_run(label, m, fcfg, chaos, rep, ref, crcs, seconds, agents_up,
                              f"recovered: {row}")
 
 
+# ---------------------------------------------------------------------- #
+# phase 19: sharded training on a (1, 1) mesh, and the dry-run
+# ---------------------------------------------------------------------- #
+# the dry-run's records: (arch, extra flags); minicpm-2b on both meshes
+DRYRUN_RUNS = (("minicpm-2b", ["--both-meshes"]), ("qwen2-vl-2b", []))
+DRYRUN_RECORDS = (("minicpm-2b", "16x16"), ("minicpm-2b", "2x16x16"),
+                  ("qwen2-vl-2b", "16x16"))
+DRYRUN_TIMEOUT_S = 600
+
+
+def _start_dryrun(out_dir: str) -> list:
+    """The dry-run's processes on the host, started together: each
+    traces its records at train_4k and writes them to its own file."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = []
+    for arch, flags in DRYRUN_RUNS:
+        out = os.path.join(out_dir, f"{arch}.json")
+        log_f = open(os.path.join(out_dir, f"{arch}.log"), "w")
+        procs.append((out, log_f, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", "train_4k", "--out", out] + flags,
+            stdout=log_f, stderr=subprocess.STDOUT, env=env)))
+    return procs
+
+
+def _finish_dryrun(procs, t_end: float) -> list:
+    """Wait for the dry-run's processes (until ``t_end``), kill any that
+    is still running, and return their records."""
+    records = []
+    try:
+        for out, log_f, proc in procs:
+            rc = proc.wait(timeout=max(t_end - time.perf_counter(), 1.0))
+            log_f.close()
+            if rc != 0:
+                with open(log_f.name) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"sharded: dry-run exited {rc}: {tail}")
+            with open(out) as f:
+                records += json.load(f)
+    finally:
+        for _, log_f, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_f.close()
+    return records
+
+
+def phase_sharded(base):
+    """(a) ``launch.train`` as phase ``train`` ran it (minicpm-2b, full
+    width and depth, bf16, B 4, seq 2048, accum 2, 3 steps, with a
+    checkpoint), now with ``--distributed``: an ``nccl`` world of one
+    that the driver starts and destroys, a (1, 1) ('data', 'model') mesh
+    over the card, every parameter a DTensor at its plan's placements,
+    the flash kernels launched through ``local_map`` on the local blocks.
+    Required: every parameter at its placements; the per-step losses and
+    the checkpoint's CRC those of phase ``train``'s run, bitwise; the
+    flash launches equal to that run's. Prints both runs' seconds a step
+    (DTensor's host cost on a 1 x 1 mesh) and peak memory. (b) The
+    dry-run on the host, in processes started when the phase starts:
+    minicpm-2b at train_4k on 16 x 16 and 2 x 16 x 16, qwen2-vl-2b on
+    16 x 16. Required: each record ``ok``. Prints per-device FLOPs,
+    collective bytes by kind, argument and temporary bytes against this
+    card's memory, and the roofline terms at the H100's rates."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import checkpoint_crc
+    from repro_torch.launch import specs, train
+    from repro_torch.launch.mesh import CARD, hbm_capacity
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.tree import flatten
+    t_phase = time.perf_counter()
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    procs = _start_dryrun(dry_dir)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all()
+        ckdir = _checkpoint_dir(TRAIN_CKPT_BYTES)
+        try:
+            path = os.path.join(ckdir, "sharded.npz")
+            t0 = time.perf_counter()
+            res = train.run(TRAIN_ARGS + ["--distributed", "--checkpoint",
+                                          path])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            crc = checkpoint_crc(path)
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = _launches()
+        if dist.is_initialized():
+            raise AssertionError("sharded: the driver left its group")
+        want = flatten(specs.param_shardings(make_rules(res.mesh),
+                                             res.params))
+        off_plan = [k for k, t in flatten(res.params).items()
+                    if not isinstance(t, DTensor)
+                    or tuple(t.placements) != tuple(want[k])]
+        mesh_shape = list(res.mesh.shape)
+        losses, s_step = res.losses, res.loop_seconds / len(res.losses)
+        del res
+        torch.cuda.empty_cache()
+        row = {"run": "launch.train --distributed",
+               "args": " ".join(TRAIN_ARGS + ["--distributed"]),
+               "mesh": mesh_shape, "params_off_plan": off_plan,
+               "losses": losses, "losses_unsharded": base["losses"],
+               "losses_equal": losses == base["losses"],
+               "loss_diff": [a - b for a, b in zip(losses,
+                                                    base["losses"])],
+               "crc": crc, "crc_unsharded": base["crc"],
+               "crc_equal": crc == base["crc"],
+               "s_per_step": s_step,
+               "s_per_step_unsharded": base["s_per_step"],
+               "host_cost_s_per_step": s_step - base["s_per_step"],
+               "wall_s_with_init_and_checkpoint": wall,
+               "max_memory_allocated_gb": peak_gb,
+               "max_memory_allocated_gb_unsharded":
+                   base["max_memory_allocated_gb"],
+               "launches": launches, "launches_unsharded": base["launches"]}
+        log("sharded", **row)
+        if off_plan:
+            raise AssertionError(f"sharded: parameters off their plan: "
+                                 f"{off_plan[:5]}")
+        if mesh_shape != [1, 1]:
+            raise AssertionError(f"sharded: mesh {mesh_shape}, not (1, 1)")
+        if launches != base["launches"] or not all(
+                launches[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                          "flash_bwd_dkdv")):
+            raise AssertionError(f"sharded: launches {launches} against "
+                                 f"{base['launches']}")
+        if not (row["losses_equal"] and row["crc_equal"]):
+            raise AssertionError("sharded: the sharded run parts from the "
+                                 f"unsharded one: {row}")
+        records = _finish_dryrun(procs, t_phase + DRYRUN_TIMEOUT_S)
+        cap = hbm_capacity()
+        got = {(r["arch"], r["mesh"]): r for r in records}
+        for key in DRYRUN_RECORDS:
+            r = got.get(key)
+            if r is None or r["status"] != "ok":
+                raise AssertionError(f"sharded: dry-run {key}: {r}")
+            mem = r["memory_analysis"]
+            log("sharded", dryrun=f"{key[0]} x train_4k x {key[1]}",
+                status=r["status"], n_devices=r["n_devices"],
+                accum_steps=r["accum_steps"],
+                host_seconds_trace=r["seconds_trace"],
+                flops_per_device=r["flops_per_device"],
+                bytes_per_device=r["bytes_per_device"],
+                collective_bytes_per_device=r["collective_bytes_per_device"],
+                n_collectives={k: r[k] for k in (
+                    "n_allgather", "n_allreduce", "n_reducescatter",
+                    "n_alltoall", "n_collectivepermute")},
+                argument_bytes=mem["argument_bytes"],
+                temp_bytes=mem["temp_bytes"], hbm_capacity_bytes=cap,
+                fits=mem["argument_bytes"] + mem["temp_bytes"] <= cap,
+                roofline={k: r["roofline"][k] for k in (
+                    "compute_s", "memory_s", "collective_s", "dominant")},
+                rates_card=CARD)
+    finally:
+        for _, log_f, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_f.close()
+        shutil.rmtree(dry_dir, ignore_errors=True)
+    log("sharded", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3856,7 +4068,7 @@ def main() -> int:
     launches_replay = run(phase_replay)
     run(phase_policies)
     launches_recovery = run(phase_recovery)
-    launches_train = run(phase_train)
+    launches_train, train_base = run(phase_train)
     run(phase_profile)
     hybrid = run(phase_hybrid)
     launches.update(ssd_fwd=hybrid["ssd_fwd"], ssd_bwd=hybrid["ssd_bwd"])
@@ -3868,6 +4080,7 @@ def main() -> int:
     family_paths = run(phase_families)
     last_paths = run(phase_xlstm_whisper)
     fleet_paths = run(phase_fleet)
+    launches_sharded = run(phase_sharded, train_base)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ssd
@@ -3941,6 +4154,9 @@ def main() -> int:
                  if n.get(name)}
         if fleet:
             kernels[-1]["launches_fleet"] = fleet
+        if launches_sharded.get(name):
+            # the sharded driver's own count (phase ``sharded``)
+            kernels[-1]["launches_sharded"] = launches_sharded[name]
         for key in ("at_d112", "at_d160", "at_d160_f32", "ring",
                     "with_state_in_out", "at_cross"):
             if key in t:

@@ -253,13 +253,18 @@ class ScheduleExecutor:
     waits for the writer, so host memory stays under two copies of the
     largest job's state however short ``checkpoint_every`` is.
 
-    The reference's ``donate``, ``rules`` and ``program_cache`` are left
-    out: the port updates state in place, runs eagerly and compiles no
-    program; sharding comes with the mesh."""
+    ``rules`` (a ``sharding.rules.ShardingRules``) runs every job on
+    DTensors over ``rules.mesh``, as the reference traces its programs
+    under the rules: parameters and moments at their sanitized placements
+    (``launch.specs.param_shardings``), the batch over the batch axes,
+    each group call inside the activation rules; a checkpoint gathers the
+    whole tensors, and a restore distributes them again. The reference's
+    ``donate`` and ``program_cache`` are left out: the port updates state
+    in place, runs eagerly and compiles no program."""
 
     CKPT_SNAPSHOTS = 2
 
-    def __init__(self, *, device=None,
+    def __init__(self, *, device=None, rules=None,
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 0,
                  checkpoint_tag: str = "",
@@ -268,6 +273,7 @@ class ScheduleExecutor:
                  retry_seed: int = 0,
                  sleep=time.sleep) -> None:
         self.device = resolve_device(device)
+        self.rules = rules
         self.runs: Dict[str, JobRun] = {}
         self.calls = 0
         self.checkpoint_dir = checkpoint_dir
@@ -309,11 +315,36 @@ class ScheduleExecutor:
             run.sub_batch = int(sub_batch)
             run.accum_steps = accum_for_sub_batch(run.spec.batch,
                                                   run.sub_batch)
-        run.params, run.opt, run.batch = (
+        run.params, run.opt, run.batch = self._distribute(
             state if state is not None
             else _make_state(run.spec, self.device))
         run.started = True
         return run
+
+    def _distribute(self, state: tuple) -> tuple:
+        """(params, opt, batch) as DTensors on ``rules.mesh`` (unchanged
+        without rules): parameters and moments at the parameters'
+        placements, the batch over the batch axes."""
+        if self.rules is None:
+            return state
+        from repro_torch.launch import specs
+        from repro_torch.sharding.rules import distribute_tree
+        params, opt, batch = state
+        mesh = self.rules.mesh
+        pl = specs.param_shardings(self.rules, params)
+        return (distribute_tree(mesh, params, pl),
+                OptState(step=opt.step, m=distribute_tree(mesh, opt.m, pl),
+                         v=distribute_tree(mesh, opt.v, pl)),
+                distribute_tree(mesh, batch,
+                                specs.batch_shardings(self.rules, batch)))
+
+    def _ctx(self):
+        if self.rules is None:
+            import contextlib
+            return contextlib.nullcontext()
+        from repro_torch.sharding.hooks import activation_rules
+        return activation_rules(self.rules.activation_table(),
+                                rules=self.rules)
 
     def reconfigure(self, name: str, sub_batch: int) -> JobRun:
         """Mid-run sub-batch change: params/opt state carry through
@@ -387,7 +418,9 @@ class ScheduleExecutor:
             raise RuntimeError(f"job {name!r} not started")
 
         def host(tree):
-            return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+            from repro_torch.sharding.rules import full_tree
+            return tree_map(lambda t: t.detach().to("cpu", copy=True),
+                            full_tree(tree))
 
         self._ckpt_slots.acquire()     # waits while the writer is behind
         try:
@@ -451,8 +484,12 @@ class ScheduleExecutor:
         run = self.runs[name]
         if not run.started:
             raise RuntimeError(f"job {name!r} not started")
-        run.params, run.opt, step = _ckpt.restore(
-            path, params_like=run.params, opt_like=run.opt)
+        from repro_torch.sharding.rules import full_tree
+        params, opt, step = _ckpt.restore(
+            path, params_like=full_tree(run.params),
+            opt_like=OptState(step=run.opt.step, m=full_tree(run.opt.m),
+                              v=full_tree(run.opt.v)))
+        run.params, run.opt, _ = self._distribute((params, opt, {}))
         run.steps_done = step
         run.last_ckpt_step = step
         return run
@@ -479,7 +516,8 @@ class ScheduleExecutor:
                 path, params_like=params, opt_like=opt)
         else:
             run.steps_done = 0
-        run.params, run.opt, run.batch = params, opt, batch
+        run.params, run.opt, run.batch = self._distribute(
+            (params, opt, batch))
         run.failed = False
         run.restarts += 1
         return run
@@ -511,7 +549,8 @@ class ScheduleExecutor:
                 args += [r.params, r.opt, r.batch]
             self._sync()
             t0 = time.perf_counter()
-            out = prog(*args)
+            with self._ctx():
+                out = prog(*args)
             self._sync()
             return out, time.perf_counter() - t0
 

@@ -25,6 +25,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.hooks import (as_dtensor, constrain, is_dtensor,
+                                        merge_last, split_last)
 
 from .layers import apply_rope, linear, normal_init
 
@@ -60,19 +62,18 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
 
 def _qkv(p, x, cos, sin, n_heads, n_kv_heads, head_dim):
     """Projections and RoPE: (B, S, H, D) q and (B, S, Hkv, D) k, v."""
-    b, s, _ = x.shape
-    q = linear(p["wq"], x).reshape(b, s, n_heads, head_dim)
-    k = linear(p["wk"], x).reshape(b, s, n_kv_heads, head_dim)
-    v = linear(p["wv"], x).reshape(b, s, n_kv_heads, head_dim)
+    q = split_last(linear(p["wq"], x), n_heads, head_dim)
+    k = split_last(linear(p["wk"], x), n_kv_heads, head_dim)
+    v = split_last(linear(p["wv"], x), n_kv_heads, head_dim)
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    return q, k, v
+    return constrain(q, "act_heads"), k, v
 
 
 def _out(p, out):
-    b, s, h, d = out.shape
-    return linear(p["wo"], out.reshape(b, s, h * d))
+    out = constrain(out, "act_heads")
+    return linear(p["wo"], merge_last(out, 2))
 
 
 def attention(p, x, cos, sin, *, n_heads, n_kv_heads, head_dim,
@@ -108,6 +109,7 @@ def attention_prefill(p, x, cos, sin, cache, *, n_heads, n_kv_heads,
                              f"{s_cache}")
         cache["k"][:, :s] = k.to(cache["k"].dtype)
         cache["v"][:, :s] = v.to(cache["v"].dtype)
+    _constrain_cache(cache)
     groups = n_heads // n_kv_heads
     out = ops.flash_attention(q, _repeat_kv(k, groups),
                               _repeat_kv(v, groups), causal=True,
@@ -132,6 +134,7 @@ def attention_prefill_extend(p, x, cos, sin, cache, *, start, n_heads,
                          f"of {s_cache}")
     cache["k"][:, start:start + s] = k.to(cache["k"].dtype)
     cache["v"][:, start:start + s] = v.to(cache["v"].dtype)
+    _constrain_cache(cache)
     groups = n_heads // n_kv_heads
     kk = _repeat_kv(cache["k"][:, :start + s], groups)
     vv = _repeat_kv(cache["v"][:, :start + s], groups)
@@ -166,6 +169,7 @@ def attention_decode(p, x, cos, sin, cache, index, *, n_heads, n_kv_heads,
     row = index % s_cache if window else index
     _scatter_rows(cache["k"], k, row)
     _scatter_rows(cache["v"], v, row)
+    _constrain_cache(cache)
     lengths = (index + 1).clamp_max(s_cache) if window else index + 1
     out = ops.flash_decode(q, cache["k"], cache["v"], lengths)
     return _out(p, out), cache
@@ -195,12 +199,23 @@ def _attention_decode_paged(p, q, k, v, cache, index, pages):
     return _out(p, out), cache
 
 
+def _constrain_cache(cache) -> None:
+    """The K/V cache at its ``kv_cache`` placements, in the cache dict
+    (a linear or ring cache; the paged pools' layout has no entry)."""
+    cache["k"] = constrain(cache["k"], "kv_cache")
+    cache["v"] = constrain(cache["v"], "kv_cache")
+
+
 def _scatter_rows(cache: torch.Tensor, new: torch.Tensor,
                   slots: torch.Tensor) -> torch.Tensor:
     """In place, per example: cache[b, slots[b]] = new[b, 0]. cache
     (B, S, H, D), new (B, 1, H, D), slots (B,). A row at or past S is
     dropped (JAX drops an out-of-bounds scatter; CUDA would fault): the
-    row is clamped and the old value written back, with no host sync."""
+    row is clamped and the old value written back, with no host sync.
+    A DTensor cache is written on each rank's local block (DTensor has no
+    in-place indexed write across placements)."""
+    if is_dtensor(cache):
+        return _scatter_rows_local(cache, new, slots)
     b, s = cache.shape[:2]
     ar = torch.arange(b, device=cache.device)
     row = slots.clamp(0, s - 1)
@@ -210,28 +225,48 @@ def _scatter_rows(cache: torch.Tensor, new: torch.Tensor,
     return cache
 
 
+def _scatter_rows_local(cache, new, slots):
+    """``_scatter_rows`` of a DTensor cache on each rank's block: ``new``
+    and ``slots`` are brought to the cache's batch and head placements,
+    and each slot is shifted by the block's first row, so that a rank
+    whose block of a sequence-sharded cache (the long-decode mode) does
+    not hold the row drops the write."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pl = cache.device_mesh, list(cache.placements)
+    # the block's first row: DTensor splits a dim over its mesh dims in
+    # mesh order, each into chunks of ceil(rows / size)
+    first, rows = 0, cache.shape[1]
+    for i, p in enumerate(pl):
+        if p.is_shard(1):
+            rows = -(-rows // mesh.size(i))
+            first += mesh.get_coordinate()[i] * rows
+    new_l = as_dtensor(new, mesh).redistribute(mesh, [
+        Replicate() if p.is_shard(1) else p for p in pl]).to_local()
+    slots_l = as_dtensor(slots, mesh).redistribute(mesh, [
+        Shard(0) if p.is_shard(0) else Replicate() for p in pl]).to_local()
+    _scatter_rows(cache.to_local(), new_l, slots_l - first)
+    return cache
+
+
 # ---------------------------------------------------------------------- #
 # cross-attention (Whisper's decoder over the encoder's output)
 # ---------------------------------------------------------------------- #
 def cross_kv(p, enc, *, n_heads, head_dim):
     """The encoder rows' K and V: enc (B, Se, D) -> two (B, Se, H, Dh)."""
-    b, se, _ = enc.shape
-    return (linear(p["wk"], enc).reshape(b, se, n_heads, head_dim),
-            linear(p["wv"], enc).reshape(b, se, n_heads, head_dim))
+    return (split_last(linear(p["wk"], enc), n_heads, head_dim),
+            split_last(linear(p["wv"], enc), n_heads, head_dim))
 
 
 def cross_attention(p, x, k, v, *, n_heads, head_dim):
     """x: (B, S, D) decoder rows attending, non-causally, every encoder
     row of k/v (B, Se, H, Dh): training (differentiable in x, k and v)
     and prefill over the cached rows."""
-    b, s, _ = x.shape
-    q = linear(p["wq"], x).reshape(b, s, n_heads, head_dim)
+    q = split_last(linear(p["wq"], x), n_heads, head_dim)
     return _out(p, ops.flash_attention(q, k, v, causal=False))
 
 
 def cross_attention_decode(p, x, k, v, lengths, *, n_heads, head_dim):
     """One decoder token x (B, 1, D) over the cached encoder rows k/v
     (B, Se, H, Dh), the first ``lengths`` (B,) of them valid."""
-    b = x.shape[0]
-    q = linear(p["wq"], x).reshape(b, 1, n_heads, head_dim)
+    q = split_last(linear(p["wq"], x), n_heads, head_dim)
     return _out(p, ops.flash_decode(q, k, v, lengths))

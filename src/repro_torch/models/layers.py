@@ -10,6 +10,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.hooks import constrain, is_dtensor
+
 
 def normal_init(gen: torch.Generator, shape, dtype, device, std=0.02):
     """N(0, std^2) in f32 from ``gen``, cast to ``dtype``."""
@@ -34,7 +36,18 @@ def linear(p, x):
 
 
 def embed(p, tokens, dtype):
-    return F.embedding(tokens, p["table"].to(dtype))
+    """The table's rows for ``tokens``. A DTensor table (vocab over
+    'model', d_model over 'data') is gathered whole first, FSDP's
+    all-gather before use: DTensor's lookup on a table sharded in both
+    dims gives a wrong mask, and on a vocab-sharded table it returns a
+    masked partial sum whose backward DTensor cannot take. Its gradient
+    comes back as a partial sum over the batch axes."""
+    table = p["table"].to(dtype)
+    if is_dtensor(table):
+        from torch.distributed.tensor import Replicate
+        table = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
+    return F.embedding(tokens, table)
 
 
 def unembed(p, x):
@@ -110,6 +123,7 @@ def sinusoidal_positions(positions: torch.Tensor, d_model: int
 
 def swiglu(p, x):
     h = F.silu(linear(p["gate"], x)) * linear(p["up"], x)
+    h = constrain(h, "act_ffn")
     return linear(p["down"], h)
 
 
@@ -128,4 +142,5 @@ def gelu_mlp_init(gen, d, d_ff, *, lead=(), dtype, device):
 def gelu_mlp(p, x):
     """``jax.nn.gelu``'s default is the tanh approximation, so the port
     takes it too, not the exact erf form."""
-    return linear(p["down"], F.gelu(linear(p["up"], x), approximate="tanh"))
+    h = F.gelu(linear(p["up"], x), approximate="tanh")
+    return linear(p["down"], constrain(h, "act_ffn"))

@@ -31,8 +31,12 @@ layer's (C, n, m), stacked (n_units, mLSTM layers per unit, B, ...), and
 the sLSTM's (h, c, n, m); an audio unit's its self-attention K/V under
 ``self`` and the encoder's K/V for its cross-attention under ``cross``,
 with the count of encoder rows they hold in the cache's ``cross_len``
-(a host int). The reference's sharding constraints are no-ops on one
-device and are left out.
+(a host int).
+
+The reference's sharding constraints are kept at its choke points
+(``constrain``: the residual stream ``act_btd`` after the embedding and
+after each block, the ``logits``): the identity on plain tensors, a
+redistribution of DTensors inside a rules context (``sharding.hooks``).
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.sharding.hooks import constrain
 from repro_torch.tree import unit_slice
 
 from . import attention as attn_mod
@@ -203,11 +208,11 @@ def _ffn_block(p, cfg, x):
     layer's aux loss or None)."""
     xn = rms_norm(p["ln2"], x, cfg.norm_eps)
     if "ffn" not in p:
-        return x + swiglu(p["mlp"], xn), None
+        return constrain(x + swiglu(p["mlp"], xn), "act_btd"), None
     y, aux = moe_mod.moe_forward(
         p["ffn"], xn, n_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
         capacity_factor=cfg.moe_capacity_factor, dispatch=cfg.moe_dispatch)
-    return x + y, aux
+    return constrain(x + y, "act_btd"), aux
 
 
 def _attn_block_fwd(p, cfg, x, cos, sin, window):
@@ -246,14 +251,14 @@ def _make_unit_fwd(cfg: ArchConfig, shared_attn, cos, sin, window):
     if cfg.family == "ssm":
         def unit_fwd(x, p):
             for lp in _layers(p["mlstm"], _n_mlstm(cfg)):
-                x = x + xlstm_mod.mlstm_forward(
+                x = constrain(x + xlstm_mod.mlstm_forward(
                     lp["mlstm"], rms_norm(lp["ln"], x, cfg.norm_eps),
-                    d_inner=cfg.d_inner, n_heads=cfg.n_heads)
+                    d_inner=cfg.d_inner, n_heads=cfg.n_heads), "act_btd")
             if "slstm" in p:
-                x = x + xlstm_mod.slstm_forward(
+                x = constrain(x + xlstm_mod.slstm_forward(
                     p["slstm"]["slstm"],
                     rms_norm(p["slstm"]["ln"], x, cfg.norm_eps),
-                    n_heads=cfg.n_heads)
+                    n_heads=cfg.n_heads), "act_btd")
             return x, _zero(x)
         return unit_fwd
     if cfg.family != "hybrid":
@@ -263,10 +268,10 @@ def _make_unit_fwd(cfg: ArchConfig, shared_attn, cos, sin, window):
 
     def unit_fwd(x, p):
         for lp in _layers(p["mamba"], cfg.pattern_unit()):
-            x = x + ssm_mod.mamba2_forward(
+            x = constrain(x + ssm_mod.mamba2_forward(
                 lp["mamba"], rms_norm(lp["ln"], x, cfg.norm_eps),
                 d_inner=cfg.d_inner, ssm_state=cfg.ssm_state,
-                n_heads=cfg.n_ssm_heads)
+                n_heads=cfg.n_ssm_heads), "act_btd")
         if shared_attn is not None:
             x = _attn_block_fwd(shared_attn, cfg, x, cos, sin, window)[0]
         return x, _zero(x)
@@ -302,6 +307,7 @@ def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
     if cfg.family == "vlm" and "vision_embeds" in batch:
         tv = batch["vision_embeds"].shape[1]
         x = torch.cat([batch["vision_embeds"].to(dt), x[:, tv:]], dim=1)
+    x = constrain(x, "act_btd")
     if cfg.is_encoder_decoder:
         enc = encode(cfg, params, batch["frames"], remat=remat)
         return _decoder_forward(cfg, params, x, enc, remat=remat)
@@ -317,8 +323,8 @@ def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
 
 def _lm_head(cfg, params, x):
     if cfg.tie_embeddings:
-        return unembed(params["embed"], x)
-    return linear(params["lm_head"], x)
+        return constrain(unembed(params["embed"], x), "logits")
+    return constrain(linear(params["lm_head"], x), "logits")
 
 
 # ---------------------------------------------------------------------- #
@@ -344,7 +350,7 @@ def encode(cfg: ArchConfig, params, frames, *, remat: bool = True):
             head_dim=cfg.head_dim, causal=False)
         x = x + h
         x = x + gelu_mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps))
-        return x, _zero(x)
+        return constrain(x, "act_btd"), _zero(x)
 
     x, _ = _scan_units(x, params["encoder"]["units"], cfg.encoder_layers,
                        unit_fwd, remat)
@@ -365,7 +371,7 @@ def _decoder_forward(cfg, params, x, enc, *, remat: bool):
         x = x + attn_mod.cross_attention(
             p["xattn"], rms_norm(p["lnx"], x, cfg.norm_eps), k, v, **akw)
         x = x + gelu_mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps))
-        return x, _zero(x)
+        return constrain(x, "act_btd"), _zero(x)
 
     x, aux = _scan_units(x, params["units"], cfg.n_units, unit_fwd, remat)
     x = rms_norm(params["ln_f"], x, cfg.norm_eps)
@@ -588,7 +594,7 @@ def _embed_tokens(cfg: ArchConfig, params, tokens, positions):
     if cfg.is_encoder_decoder:
         pos = _positions(cfg, positions, dt)
         x = x + (pos[None] if positions.ndim == 1 else pos)
-    return x
+    return constrain(x, "act_btd")
 
 
 @torch.no_grad()
@@ -648,7 +654,8 @@ def prefill_extend(cfg: ArchConfig, params, cache, tokens, *,
             f"{cfg.family!r} carries recurrent state across positions "
             f"or attends an encoder")
     b, s = tokens.shape
-    x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    x = constrain(embed(params["embed"], tokens, torch_dtype(cfg.dtype)),
+                  "act_btd")
     cos, sin = _rope_tables(
         cfg, torch.arange(start, start + s, device=tokens.device))
 

@@ -28,6 +28,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.hooks import constrain, unshard
+
 from .layers import linear, normal_init, swiglu
 
 GROUP_SIZE = 256
@@ -113,7 +115,7 @@ def moe_forward(p, x, *, n_experts: int, top_k: int,
     if e_pad > n_experts:
         pad = torch.arange(e_pad, device=x.device) >= n_experts
         logits = torch.where(pad, torch.full_like(logits, -1e30), logits)
-    probs = torch.softmax(logits, dim=-1)
+    probs = constrain(torch.softmax(logits, dim=-1), "router")
 
     # load-balance aux (Switch): E * sum_e f_e * P_e; argmax takes the
     # first of equal maxima, as jnp.argmax does
@@ -151,10 +153,13 @@ def moe_forward(p, x, *, n_experts: int, top_k: int,
     disp = torch.einsum("tgke,tgkc->tgec", onehot.to(x.dtype), slot_oh)
     comb = torch.einsum("tgk,tgke,tgkc->tgec", gateg.float(),
                         onehot.float(), slot_oh.float())
-    xe = torch.einsum("tgec,tgd->tecd", disp, xg)
-    ye = _experts(p["experts"], xe)
-    # combine in the model dtype, as the reference does
-    y = torch.einsum("tgec,tecd->tgd", comb.to(x.dtype), ye)
+    xe = constrain(torch.einsum("tgec,tgd->tecd", disp, xg), "moe_dispatch")
+    ye = constrain(_experts(p["experts"], xe), "moe_dispatch")
+    # combine in the model dtype, as the reference does. DTensor runs this
+    # einsum as a bmm over (expert, slot) merged, which it cannot
+    # propagate with the experts sharded (a strided shard): the expert
+    # outputs are gathered over 'model' first
+    y = torch.einsum("tgec,tecd->tgd", comb.to(x.dtype), unshard(ye, 1))
     return y.reshape(b, s, d).to(x.dtype) + _shared(p, x), aux
 
 
@@ -168,7 +173,8 @@ def _scatter_moe(p, xg, idxg, pos, keep, gateg, cap, e_pad):
     pos_c = torch.clamp_max(pos, cap - 1)
     xe = torch.zeros((G, e_pad, cap, d), dtype=xg.dtype, device=xg.device)
     xe = xe.index_put((gi, idxg, pos_c), upd, accumulate=True)
-    ye = _experts(p["experts"], xe)
+    xe = constrain(xe, "moe_dispatch")
+    ye = constrain(_experts(p["experts"], xe), "moe_dispatch")
     picked = ye[gi, idxg, pos_c]                            # (G, g, k, d)
     wk = (gateg * keep.to(gateg.dtype)).to(xg.dtype)
     return torch.einsum("tgk,tgkd->tgd", wk, picked)

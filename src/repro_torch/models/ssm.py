@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.hooks import constrain
 
 from .layers import linear, normal_init, rms_norm
 
@@ -101,7 +102,8 @@ def mamba2_forward(p, x, *, d_inner, ssm_state, n_heads):
     """x: (B, S, d_model) -> (B, S, d_model)."""
     proj = linear(p["in_proj"], x)
     z, xbc, dt_raw = _split_proj(proj, d_inner, ssm_state, n_heads)
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    xbc = constrain(_causal_conv(xbc, p["conv_w"], p["conv_b"]),
+                    "act_inner")
     xs, Bm, Cm, dt, A = _ssm_inputs(p, xbc, dt_raw, d_inner, ssm_state,
                                     n_heads)
     y = ops.ssd(xs, dt, A, Bm, Cm) + p["D"][:, None] * xs
@@ -137,12 +139,13 @@ def mamba2_prefill(p, x, cache, *, d_inner, ssm_state, n_heads):
     proj = linear(p["in_proj"], x)
     z, xbc_raw, dt_raw = _split_proj(proj, d_inner, n, h)
     conv = cache["conv"]
-    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"], conv)
+    xbc = constrain(_causal_conv(xbc_raw, p["conv_w"], p["conv_b"], conv),
+                    "act_inner")
     conv.copy_(torch.cat([conv, xbc_raw[:, -conv.shape[1]:].to(conv.dtype)],
                          dim=1)[:, -conv.shape[1]:])
     xs, Bm, Cm, dt, A = _ssm_inputs(p, xbc, dt_raw, d_inner, n, h)
     y, state = ops.ssd_prefill(xs, dt, A, Bm, Cm, cache["state"])
-    cache["state"].copy_(state)
+    cache["state"].copy_(constrain(state, "ssm_state"))
     y = y + p["D"][:, None] * xs
     return _out(p, y, z, x), cache
 
@@ -167,5 +170,6 @@ def mamba2_decode(p, x, cache, *, d_inner, ssm_state, n_heads):
     state = cache["state"]                                   # (B, H, P, N)
     state.mul_(torch.exp(A * dt)[..., None, None]).add_(
         (dt[..., None] * xs)[..., None] * Bm[:, None, None, :])
+    state = constrain(state, "ssm_state")
     y = (state * Cm[:, None, None, :]).sum(dim=-1) + p["D"][:, None] * xs
     return _out(p, y[:, None], z[:, None], x), cache

@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.hooks import constrain, split_last
+
 from .layers import linear, normal_init, rms_norm
 
 CHUNK = 256
@@ -119,12 +121,12 @@ def mlstm_chunked(q, k, v, i_log, f_log, *, chunk=CHUNK, init_state=None,
 
 def _mlstm_inputs(p, x, d_inner, n_heads):
     """The projection's q, k, v as (B, S, H, Dh) f32, z, and the gates."""
-    b, s, _ = x.shape
     dh = d_inner // n_heads
     q, k, v, z, i_raw, f_raw = _mlstm_split(linear(p["in_proj"], x),
                                             d_inner, n_heads)
+    q = constrain(q, "act_inner")
     i_log, f_log = _gates(i_raw, f_raw)
-    q, k, v = (t.float().reshape(b, s, n_heads, dh) for t in (q, k, v))
+    q, k, v = (split_last(t.float(), n_heads, dh) for t in (q, k, v))
     return q, k, v, z, i_log, f_log
 
 

@@ -17,6 +17,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.sharding.hooks import is_dtensor
 from repro_torch.tree import flatten, zeros_like_tree
 
 
@@ -35,9 +36,34 @@ def _add_into(acc, grads, weight=None) -> None:
     for unit u of a stacked unit weight, or (u, i) for layer i of it."""
     fa = flatten(acc)
     for key, index, g in grads:
-        t = fa[key] if index is None else fa[key][index]
+        t = fa[key]
+        if is_dtensor(t):
+            # the gradient already stands at the slice's placements
+            # (``train_step._reduce_grad``): add the local blocks
+            t, g = t.to_local(), g.to_local()
+        t = t if index is None else t[index]
         g = g.float()
         t.add_(g if weight is None else g * weight)
+
+
+def _rows(t, start: int, stop: int):
+    """Rows [start, stop) of a batch tensor. A DTensor sharded along the
+    batch gives the same rows as on one device, sharded again over the
+    batch axes when they divide the micro-batch (DTensor gathers the
+    batch to slice it; token ids are small)."""
+    part = t[start:stop]
+    if not is_dtensor(t) or part.placements == t.placements:
+        return part
+    from torch.distributed.tensor import Replicate
+    mesh, n = t.device_mesh, stop - start
+    sizes = [mesh.size(i) for i, pl in enumerate(t.placements)
+             if pl.is_shard(0)]
+    prod = 1
+    for size in sizes:
+        prod *= size
+    want = [pl if n % prod == 0 or not pl.is_shard(0) else Replicate()
+            for pl in t.placements]
+    return part.redistribute(mesh, want)
 
 
 def accumulate_gradients(
@@ -72,7 +98,8 @@ def accumulate_gradients(
 
     if big % sub == 0:
         for i in range(steps):
-            mb = {k: t[i * sub:(i + 1) * sub] for k, t in batch.items()}
+            mb = {k: _rows(t, i * sub, (i + 1) * sub)
+                  for k, t in batch.items()}
             loss, grads = loss_and_grad(params, mb)
             _add_into(acc, grads)
             del grads
@@ -95,7 +122,7 @@ def accumulate_gradients(
     for i in range(steps):
         mb = {}
         for k, t in batch.items():
-            part = t[i * sub:(i + 1) * sub]
+            part = _rows(t, i * sub, (i + 1) * sub)
             if part.shape[0] < sub:
                 pad = torch.zeros((sub - part.shape[0],) + part.shape[1:],
                                   dtype=t.dtype, device=t.device)

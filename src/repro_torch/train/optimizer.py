@@ -16,6 +16,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.sharding.hooks import is_dtensor
 from repro_torch.tree import flatten, zeros_like_tree
 
 # elements per chunk of the in-place update (64 MiB of f32 temporaries)
@@ -35,6 +36,10 @@ def adamw_init(params, moment_dtype=torch.float32) -> OptState:
 
 
 def _chunks(t: torch.Tensor):
+    """``t`` flat in chunks of ``_CHUNK`` elements; a DTensor's local
+    block (an elementwise update needs no other rank's)."""
+    if is_dtensor(t):
+        t = t.to_local()
     return t.view(-1).split(_CHUNK)
 
 
@@ -42,7 +47,9 @@ def _chunks(t: torch.Tensor):
 def adamw_update(grads, opt: OptState, params, *, lr, b1=0.9, b2=0.95,
                  eps=1e-8, weight_decay=0.1):
     """Updates ``params`` and ``opt`` in place and returns them.
-    ``lr`` may be a scalar or a schedule(step) callable."""
+    ``lr`` may be a scalar or a schedule(step) callable. DTensor leaves
+    (a gradient at its parameter's placements, the moments too) are
+    updated on each rank's local block."""
     step = opt.step + 1
     lr_t = float(lr(step)) if callable(lr) else float(lr)
     c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(step))
@@ -50,6 +57,10 @@ def adamw_update(grads, opt: OptState, params, *, lr, b1=0.9, b2=0.95,
     fp, fg = flatten(params), flatten(grads)
     fm, fv = flatten(opt.m), flatten(opt.v)
     for key, p in fp.items():
+        if is_dtensor(p) and fg[key].placements != p.placements:
+            raise ValueError(f"adamw_update: gradient of {key} at "
+                             f"{fg[key].placements}, parameter at "
+                             f"{p.placements}")
         for pc, gc, mc, vc in zip(_chunks(p), _chunks(fg[key]),
                                   _chunks(fm[key]), _chunks(fv[key])):
             g = gc.float()

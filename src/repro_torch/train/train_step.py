@@ -1,6 +1,17 @@
-"""Loss and train step (the reference's ``train/train_step.py``). The
-reference's ``reshard_grads`` / ``grad_reduce_dtype`` need a mesh and are
-left out on one device."""
+"""Loss and train step (the reference's ``train/train_step.py``).
+
+On DTensor parameters (``launch.train --distributed``,
+``ScheduleExecutor(rules=)``) autograd returns each gradient where
+DTensor's rules leave it, often a partial sum over the batch axes and not
+at its parameter's placements (the reference's XLA moved it there
+implicitly). ``_reduce_grad`` brings each micro-batch's gradient to its
+parameter's placements before it is added into the accumulator:
+``reshard_grads=False`` all-reduces the partial sums at full size and
+keeps the local block, ``True`` reduce-scatters straight to the
+placements; ``grad_reduce_dtype`` casts before that reduction. As in the
+reference, the accumulated gradients are cast to ``grad_reduce_dtype``
+before the update, on plain tensors and DTensors alike; on plain tensors
+``reshard_grads`` has nothing to move."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -13,7 +24,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import forward
 from repro_torch.models.model import layered_units
-from repro_torch.tree import flatten, grad_leaves
+from repro_torch.sharding.hooks import is_dtensor, unshard
+from repro_torch.tree import flatten, grad_leaves, tree_map
 
 from .grad_accum import accumulate_gradients
 from .optimizer import OptState, _chunks, adamw_update
@@ -28,6 +40,11 @@ class TrainConfig:
     remat: bool = True
     accum_dtype: str = "float32"
     schedule: Optional[Callable] = None   # overrides lr when set
+    # reduce each DTensor gradient straight to its parameter's placements
+    # (reduce-scatter) instead of a full-size all-reduce; optionally in a
+    # narrower dtype
+    reshard_grads: bool = False
+    grad_reduce_dtype: Optional[str] = None
 
 
 def loss_fn(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
@@ -37,6 +54,11 @@ def loss_fn(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
     padded rows of a ragged final micro-batch: they add nothing to the CE
     and the mean runs over valid samples."""
     logits, aux = forward(cfg, params, batch, remat=remat)
+    # vocab-sharded DTensor logits are gathered along the vocab first:
+    # left to itself, DTensor moves the shards to the sequence for the
+    # log-softmax, and the backward then carries strided shards that it
+    # cannot propagate under fake tensors (the dry-run)
+    logits = unshard(logits, 2)
     labels = batch["labels"]
     b, s, v = logits.shape
     ll = -F.cross_entropy(logits.float().reshape(b * s, v),
@@ -67,10 +89,63 @@ def make_loss_and_grad(cfg: ArchConfig, tc: TrainConfig = TrainConfig()):
                           aux_loss_weight=tc.aux_loss_weight,
                           remat=tc.remat)
         grads = torch.autograd.grad(loss, [leaf for _, _, leaf in slots])
+        if is_dtensor(loss):
+            loss = loss.full_tensor()
+            grads = [_reduce_grad(g, leaf.placements, tc)
+                     for (_, _, leaf), g in zip(slots, grads)]
         return loss.detach(), [(key, index, g) for (key, index, _), g
                                in zip(slots, grads)]
 
     return lg
+
+
+def _reduce_grad(g, want, tc: TrainConfig):
+    """One DTensor gradient at the placements ``want`` of its leaf, cast
+    to ``tc.grad_reduce_dtype`` first. ``reshard_grads=False`` reduces
+    its partial sums to replicated (an all-reduce at full size) and then
+    keeps the local block; ``True`` redistributes straight to ``want``
+    (a reduce-scatter)."""
+    from torch.distributed.tensor import Replicate
+    if tc.grad_reduce_dtype is not None:
+        g = g.to(torch_dtype(tc.grad_reduce_dtype))
+    if not tc.reshard_grads and any(p.is_partial() for p in g.placements):
+        g = g.redistribute(g.device_mesh, [
+            Replicate() if p.is_partial() else p for p in g.placements])
+    if tuple(g.placements) != tuple(want):
+        g = g.redistribute(g.device_mesh, want)
+    return g
+
+
+def grad_norm(grads) -> torch.Tensor:
+    """The global L2 norm of ``grads`` as f32, from f64 sums over chunks:
+    the CPU's f32 vector_norm accumulates a large tensor naively (2.4e-4
+    off for a 2.4M-entry gradient), and a whole-tensor f64 cast would
+    copy a multi-GB gradient. DTensor gradients: each rank sums its local
+    blocks, each divided by the number of ranks that hold the same block,
+    and one all-reduce adds the ranks' sums."""
+    flat = list(flatten(grads).values())
+    sharded = [g for g in flat if is_dtensor(g)]
+
+    def copies(g) -> float:
+        if not is_dtensor(g):
+            return 1.0
+        n = 1
+        for i, p in enumerate(g.placements):
+            if not p.is_shard():
+                n *= g.device_mesh.size(i)
+        return float(n)
+
+    with torch.no_grad():
+        total = sum(torch.linalg.vector_norm(c, dtype=torch.float64) ** 2
+                    / copies(g) for g in flat for c in _chunks(g))
+        if sharded:
+            import torch.distributed as dist
+            mesh = sharded[0].device_mesh
+            if mesh.size() != dist.get_world_size():
+                raise ValueError("grad_norm: the mesh must span the "
+                                 "process group")
+            dist.all_reduce(total)
+        return torch.sqrt(total).float()
 
 
 def make_train_step(cfg: ArchConfig, tc: TrainConfig = TrainConfig()):
@@ -84,17 +159,13 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig = TrainConfig()):
         loss, grads = accumulate_gradients(
             lg, params, batch, tc.accum_steps,
             accum_dtype=torch_dtype(tc.accum_dtype))
+        if tc.grad_reduce_dtype is not None:
+            gdt = torch_dtype(tc.grad_reduce_dtype)
+            grads = tree_map(lambda g: g.to(gdt), grads)
         lr = tc.schedule if tc.schedule is not None else tc.lr
         params, opt_state = adamw_update(
             grads, opt_state, params, lr=lr, weight_decay=tc.weight_decay)
-        # f64 sums over chunks: the CPU's f32 vector_norm accumulates a
-        # large tensor naively (2.4e-4 off for a 2.4M-entry gradient), and
-        # a whole-tensor f64 cast would copy a multi-GB gradient
-        with torch.no_grad():
-            gnorm = torch.sqrt(sum(
-                torch.linalg.vector_norm(c, dtype=torch.float64) ** 2
-                for g in flatten(grads).values()
-                for c in _chunks(g))).float()
-        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+        return params, opt_state, {"loss": loss,
+                                   "grad_norm": grad_norm(grads)}
 
     return train_step

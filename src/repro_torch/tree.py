@@ -106,5 +106,12 @@ def grad_leaves(params, layered=()) -> tuple:
 
 
 def zeros_like_tree(tree, dtype: torch.dtype):
-    return tree_map(lambda t: torch.zeros(t.shape, dtype=dtype,
-                                          device=t.device), tree)
+    """Zeros shaped like each leaf, in ``dtype``; a DTensor leaf gives a
+    DTensor at its placements."""
+    from repro_torch.sharding.hooks import is_dtensor
+
+    def zeros(t):
+        if is_dtensor(t):
+            return torch.zeros_like(t, dtype=dtype)
+        return torch.zeros(t.shape, dtype=dtype, device=t.device)
+    return tree_map(zeros, tree)

@@ -1,0 +1,184 @@
+"""Sharded training on DTensors against the single-process port.
+
+A real world of 4 ``gloo`` ranks on a (2, 2) ('data', 'model') mesh runs
+in a subprocess (``_torch_dist_world.py``, with a time limit of its own,
+so a hung rank fails the test): reduced minicpm-2b and qwen2-vl-2b in
+f32, accum 2, 2 steps, with ``reshard_grads`` False and True and with
+``grad_reduce_dtype="bfloat16"``; ``ScheduleExecutor(rules=)`` on a
+reduced pair; each kernel wrapper on DTensor inputs through
+``local_map``; each rank's block of a tensor dim over two mesh axes. Its
+losses and gathered parameters are held here against the same runs on
+plain tensors in one process.
+
+Tolerance: the sharded run adds the same terms in another order (partial
+matmul sums over 'model', gradient reductions over 'data'), so f32
+results differ by rounding: losses by 2e-6 relative. Parameters are
+held by their update from the initial weights: AdamW's first steps move
+each entry by about lr whatever its gradient's size, so an entry whose
+gradient is near the rounding level (or eps) may take a visibly
+different step, up to the opposite one. So no entry may be off by more
+than 2.5 times the largest update, at most 1e-3 of the entries by more
+than 5 % of it, and the mean difference must stay under 1e-4 of the mean
+update. With the gradients reduced in bf16, whose step of 2**-8 hides
+small gradient entries: losses to 2e-5, at most a quarter of the
+entries off by 5 % of the largest update, the mean under 1 % of the
+mean update.
+
+A world of one runs in this process: ``launch.train.main`` with
+``--distributed --device cpu`` is bitwise the run without the flag, and
+the group it started is gone after it.
+"""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _torch_dist_world as W  # noqa: E402
+
+from repro_torch.data import SyntheticLM  # noqa: E402
+from repro_torch.launch.cluster import ScheduleExecutor  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.launch.train import train_loop  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
+from repro_torch.tree import flatten  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORLD_TIMEOUT_S = 420
+
+
+@pytest.fixture(autouse=True)
+def no_leftover_group():
+    yield
+    assert not dist.is_initialized()
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    out = tmp_path_factory.mktemp("world4")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    run = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tests", "_torch_dist_world.py"),
+         "--world", "4", "--out", str(out)],
+        capture_output=True, text=True, env=env, timeout=WORLD_TIMEOUT_S)
+    assert run.returncode == 0, run.stderr[-6000:]
+    return torch.load(os.path.join(out, "results.pt"), weights_only=False)
+
+
+def _close_updates(got, want, start, share, mean_rel) -> bool:
+    """``got`` and ``want``, the parameters after the same steps from
+    ``start``: no entry off by more than 2.5 times the largest update, at
+    most ``share`` of them by more than 5 % of it, the mean difference
+    within ``mean_rel`` of the mean update."""
+    diff = (got - want).abs()
+    upd = (want - start).abs()
+    top = upd.max()
+    return bool(diff.max() <= 2.5 * top
+                and (diff > 0.05 * top).float().mean() <= share
+                and diff.mean() <= mean_rel * upd.mean())
+
+
+@pytest.mark.parametrize("case", W.TRAIN_CASES,
+                         ids=lambda c: f"{c[0]}-reshard{c[1]}-{c[2]}")
+def test_sharded_training_matches_one_process(world, case):
+    arch, reshard, gdt = case
+    res = world["train"][f"{arch}|{reshard}|{gdt}"]
+    cfg = W.reduced(arch)
+    params = init_params(cfg, 0, device="cpu")
+    params, _, losses = train_loop(
+        cfg, params, SyntheticLM(cfg, W.BATCH, W.SEQ, device="cpu"),
+        W.train_config(reshard, gdt), W.STEPS, log_every=W.STEPS)
+    loss_rel, share, mean_rel = (2e-5, 0.25, 1e-2) if gdt else (
+        2e-6, 1e-3, 1e-4)
+    for got, want in zip(res["losses"], losses):
+        assert abs(got - want) <= loss_rel * abs(want), (got, want)
+    got = flatten(res["params"])
+    start = flatten(init_params(cfg, 0, device="cpu"))
+    for key, want in flatten(params).items():
+        assert _close_updates(got[key], want, start[key], share,
+                              mean_rel), key
+    # every parameter stayed at its plan's placements
+    for key, (placed, planned) in res["placements"].items():
+        assert placed == planned, key
+
+
+def test_reshard_changes_only_the_collectives(world):
+    """reshard_grads True reduce-scatters where False all-reduces; both
+    reduce the same sums, so both give the same parameters to rounding."""
+    for arch in ("minicpm-2b", "qwen2-vl-2b"):
+        a = flatten(world["train"][f"{arch}|False|None"]["params"])
+        b = flatten(world["train"][f"{arch}|True|None"]["params"])
+        start = flatten(init_params(W.reduced(arch), 0, device="cpu"))
+        for key in a:
+            assert _close_updates(a[key], b[key], start[key], 1e-3,
+                                  1e-4), key
+
+
+def test_executor_with_rules_matches_executor_without(world):
+    specs = W.executor_specs()
+    with ScheduleExecutor(device="cpu") as ex:
+        for name, spec in specs.items():
+            ex.submit(name, spec, 2)
+            ex.start(name)
+        losses = [ex.step_group(["A", "B"])["losses"] for _ in range(2)]
+        params = {n: flatten(ex.runs[n].params) for n in "AB"}
+    for got, want in zip(world["executor"]["losses"], losses):
+        for n in "AB":
+            assert abs(got[n] - want[n]) <= 2e-6 * abs(want[n]), (n, got,
+                                                                   want)
+    for n in "AB":
+        got = flatten(world["executor"]["params"][n])
+        start = flatten(init_params(specs[n].cfg, specs[n].seed,
+                                    device="cpu"))
+        for key, want in params[n].items():
+            assert _close_updates(got[key], want, start[key], 1e-3,
+                                  1e-4), (n, key)
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "flash_decode",
+                                "flash_decode_paged", "ssd", "ssd_prefill"])
+def test_kernel_wrappers_on_local_blocks(world, op):
+    """Each wrapper on DTensors equals it on the whole tensors: exactly
+    where each rank computes its own rows and heads (attention, decode,
+    the SSD forward), to f32 rounding where a gradient sums over ranks
+    (the SSD's dA over the batch, dB and dC over the heads)."""
+    tol = 1e-4 if op == "ssd" else 0.0
+    assert world["ops"][op] <= tol
+    # attention ran on (B/2, S, H/2, D) blocks
+    assert world["ops"]["flash_attention_local"] == (2, 32, 2, 64)
+
+
+def test_local_blocks_follow_jax_order(world):
+    """One tensor dim over ('data', 'model'): rank (i_data, i_model)
+    holds block i_data * 2 + i_model, the reference's major-to-minor
+    order; over one axis, block i of that axis."""
+    full = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+    assert world["mesh"] == [2, 2]
+    seen = set()
+    for r in world["blocks"]:
+        i, j = r["coords"]
+        seen.add((i, j))
+        blk = i * 2 + j
+        assert torch.equal(r["blocks"]["data_model"],
+                           full[2 * blk:2 * blk + 2])
+        assert torch.equal(r["blocks"]["model_data"],
+                           full[:, 2 * blk:2 * blk + 2])
+        assert torch.equal(r["blocks"]["data"],
+                           full[4 * i:4 * i + 4, 4 * j:4 * j + 4])
+    assert seen == {(0, 0), (0, 1), (1, 0), (1, 1)}
+
+
+def test_world_of_one_is_bitwise(tmp_path):
+    args = ["--arch", "minicpm-2b", "--reduced", "--device", "cpu",
+            "--steps", "2", "--batch", "4", "--seq", "64", "--accum-steps",
+            "2", "--log-every", "1"]
+    a = train_main(args + ["--checkpoint", str(tmp_path / "a.npz")])
+    b = train_main(args + ["--distributed",
+                           "--checkpoint", str(tmp_path / "b.npz")])
+    assert a == b
+    assert (tmp_path / "a.npz").read_bytes() == \
+        (tmp_path / "b.npz").read_bytes()
+    assert not dist.is_initialized()

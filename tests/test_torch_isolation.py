@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch``,
 ``chip_smoke``, ``ssd_variants`` and ``flash_bitwise``
-loads neither JAX nor the reference package."""
+loads neither JAX nor the reference package, and starts no process
+group."""
 import os
 import subprocess
 import sys
@@ -34,8 +35,13 @@ for name in ("kernels.flash_attention", "kernels.flash_decode",
              "configs.llama4_maverick", "models.xlstm",
              "configs.xlstm_1_3b", "configs.whisper_tiny",
              "kernels.autotune", "launch.autotune", "launch.wire",
-             "launch.agent", "launch.fleet", "launch.fleet_cli"):
+             "launch.agent", "launch.fleet", "launch.fleet_cli",
+             "sharding.rules", "sharding.hooks", "launch.mesh",
+             "configs.shapes", "launch.specs", "launch.dryrun",
+             "launch.reanalyze"):
     assert "repro_torch." + name in names, name
+import torch.distributed as dist
+assert not dist.is_initialized(), "importing the port started a group"
 """
 
 
