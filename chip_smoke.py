@@ -134,8 +134,8 @@ in order; each prints its own line and any failure exits non-zero:
               steps, with a checkpoint (its CRC, losses and launches are
               phase 19's yardstick): finite losses, exact flash
               launches.
-9. profile  - one profiled step of each model: device time by kernel
-              category and the device's busy share of the step.
+9. profile  - one profiled step of each model at s = 2: device time by
+              kernel category and the device's busy share of the step.
 10. hybrid  - zamba2-7b at 36 of 81 layers through ``ScheduleExecutor``:
               2 steps at s = 4, a reconfig to s = 2, one ragged step
               (B = 5, b = 2); launch counts must equal their expected
@@ -176,7 +176,7 @@ in order; each prints its own line and any failure exits non-zero:
               1024-token prompts, max_len 4096, 64 greedy tokens (prefill
               ms, ms per decode step, tokens/s, peak memory; launches
               exact: ``ssd_fwd`` 81 and ``flash_fwd`` 9 per prefill,
-              ``flash_decode`` 9 per step); a profile of 4 decode steps;
+              ``flash_decode`` 9 per step); a profile of 2 decode steps;
               the ``DecodeEngine`` with 8 slots, dense and paged, on 16
               requests of 256-1024 prompt tokens and 32-64 new tokens:
               paged == dense and engine == solo ``generate`` (required);
@@ -204,7 +204,7 @@ in order; each prints its own line and any failure exits non-zero:
               granite-moe and llama4-maverick under the dense dispatch
               (capacity factor 8): paged == dense, prefix-shared ==
               private, engine == solo.
-17. xlstm_whisper - bf16, full width: (a) xlstm-1.3b at 16 of 48 layers
+17. xlstm_whisper - bf16, full width: (a) xlstm-1.3b at 8 of 48 layers
               through ``ScheduleExecutor`` at B 4, seq 256 (one mLSTM
               chunk: the sLSTM's per-token loop took 20.4 s a step at
               512), s = 2, a warm-up and two timed steps, the last
@@ -240,12 +240,18 @@ in order; each prints its own line and any failure exits non-zero:
               parameter at its placements, per-step losses and the
               checkpoint CRC bitwise phase 8's, flash launches equal to
               phase 8's. Prints both runs' seconds a step and peak
-              memory. (b) ``launch.dryrun`` on the host, started with the
-              phase: minicpm-2b at train_4k on 16 x 16 and 2 x 16 x 16,
-              qwen2-vl-2b on 16 x 16, each on a fake process group of
-              256 or 512 ranks. Required: every record ``ok``. Prints
-              per-device FLOPs, collective bytes, argument and temporary
-              bytes against this card's memory, roofline terms.
+              memory. (b) ``launch.dryrun`` on the host, in processes
+              started before phase 16 at the lowest CPU priority:
+              minicpm-2b at train_4k on 16 x 16 and 2 x 16 x 16,
+              qwen2-vl-2b on 16 x 16, and on 16 x 16 the records that
+              failed before their repair: llama4-maverick's and
+              zamba2-7b's prefill_32k, xlstm-1.3b's train_4k and
+              decode_32k, llama3-405b's train_4k; each on a fake process
+              group of 256 or 512 ranks, loops counted from their
+              trips. Required: every record ``ok``. Prints each record's
+              host seconds, per-device FLOPs, collective bytes, argument
+              and temporary bytes against this card's memory, roofline
+              terms.
 
 Every log line carries ``at_s``, the seconds since the script started;
 the ``done`` line gives each phase's seconds beside the 1200 s the
@@ -259,8 +265,10 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2384,15 +2392,21 @@ def _profile_fields(prof, wall_ms: float, ops=()) -> dict:
         **({"by_host_op_ms": by_op} if ops else {}))
 
 
+# micro-batches of a profiled training step (at 4 the profiler's trace
+# of each step took the smoke past its time limit on a slow host)
+PROFILE_ACCUM = 2
+
+
 def _profile_step(phase: str, cfg, ops=()):
-    """One profiled step of ``cfg`` at s = 4 after a warm-up step
-    (``_profile_fields``)."""
+    """One profiled step of ``cfg`` at s = ``PROFILE_ACCUM`` after a
+    warm-up step (``_profile_fields``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.cluster import JobSpec, ScheduleExecutor
     from repro_torch.models import param_count
     ex = ScheduleExecutor()
-    spec = JobSpec(cfg, batch=BATCH, accum_steps=4, seq=SEQ, seed=0)
+    spec = JobSpec(cfg, batch=BATCH, accum_steps=PROFILE_ACCUM, seq=SEQ,
+                   seed=0)
     ex.submit(cfg.name, spec, steps=2)
     ex.start(cfg.name)
     n_params = param_count(ex.runs[cfg.name].params)
@@ -2401,7 +2415,7 @@ def _profile_step(phase: str, cfg, ops=()):
                              ProfilerActivity.CUDA]) as prof:
         res = ex.step_group([cfg.name])
     log(phase, profile=True, model=cfg.name, n_layers=cfg.n_layers,
-        params=n_params, accum_steps=4,
+        params=n_params, accum_steps=PROFILE_ACCUM,
         **_profile_fields(prof, res["walltime"] * 1e3, ops))
     del ex
     torch.cuda.empty_cache()
@@ -2623,7 +2637,7 @@ def phase_serve():
 
 # decode steps a decode profile traces: few, as the profiler's cost grows
 # with the kernels it records (2.7-5.9k a step)
-PROFILE_DECODE_STEPS = 4
+PROFILE_DECODE_STEPS = 2     # the smoke's time limit (4 took longer)
 
 
 def _profile_decode(cfg, params, prompt, steps: int = PROFILE_DECODE_STEPS,
@@ -2924,7 +2938,7 @@ def _hybrid_requests(cfg):
 def phase_hybrid_serve(tuned_table=None):
     """zamba2-7b at all 81 layers and full width, bf16: ``generate`` at
     batch 4 (1024-token prompts, 64 greedy tokens; prefill and decode
-    times, launch counts exact), a profile of 4 decode steps, the
+    times, launch counts exact), a profile of 2 decode steps, the
     ``DecodeEngine`` dense and paged on 16 requests (paged == dense and
     engine == solo ``generate``, bitwise); then ``generate`` again with
     and without ``tuned_table`` (the ``autotune`` phase's payload: its
@@ -3305,11 +3319,11 @@ def phase_families():
 # ---------------------------------------------------------------------- #
 # xLSTM trains at seq 256 (one mLSTM chunk; its prefill of 1024 tokens
 # runs four): on an H100 a step at 512 took 20.4 s, ~690k kernels, most
-# of them the sLSTM's per-token loop; and at 16 of its 48 layers: at 48
-# its profiled step took 75 s of the smoke's 1200 (351k kernels). It
-# serves at 48.
+# of them the sLSTM's per-token loop; and at 8 of its 48 layers (one
+# unit): at 48 its profiled step took 75 s of the smoke's 1200 (351k
+# kernels), at 16 ~30 s. It serves at 48.
 XLSTM_SEQ, WHISPER_SEQ = 256, 448
-XLSTM_TRAIN_LAYERS = 16
+XLSTM_TRAIN_LAYERS = 8      # one unit (the smoke's time limit)
 
 
 def _paged_from_dense(cfg, dense, page_size: int):
@@ -3387,7 +3401,7 @@ def _whisper_small(phase: str) -> dict:
 
 def phase_xlstm_whisper():
     """The last two families at full published width, bf16: (a)
-    xlstm-1.3b: at 16 of its 48 layers through ``ScheduleExecutor`` at
+    xlstm-1.3b: at 8 of its 48 layers through ``ScheduleExecutor`` at
     B 4, seq 256, s = 2, one warm-up and two timed steps, the last of
     them profiled; at all 48 through ``generate`` at batch 4, 1024-token
     prompts
@@ -3418,7 +3432,7 @@ def phase_xlstm_whisper():
                 f"loop; training at {XLSTM_TRAIN_LAYERS} of "
                 f"{cfg.n_layers} layers (the profiler's cost); width as "
                 f"published, serving at full depth")
-    paths["xlstm-1.3b@16 executor"] = _executor_steps(
+    paths[f"xlstm-1.3b@{XLSTM_TRAIN_LAYERS} executor"] = _executor_steps(
         "xlstm_whisper", "xlstm", dataclasses.replace(
             cfg, n_layers=XLSTM_TRAIN_LAYERS), ((None, 3),), batch=BATCH,
         seq=XLSTM_SEQ, sub_batch=2, profile_last=True)
@@ -3535,6 +3549,16 @@ def _resolve_us(table) -> dict:
     return out
 
 
+def _decode_bound_ms(shape) -> float:
+    """The least time of a decode class at the H100's memory rate: each
+    slot's K and V rows up to its length (bf16) read once, q read and
+    the output written once."""
+    from repro_torch.launch.mesh import HBM_BW
+    kv = sum(shape["lengths"]) * shape["h_kv"] * shape["d"] * 2 * 2
+    qo = 2 * shape["b"] * shape["h"] * shape["d"] * 2
+    return (kv + qo) / HBM_BW * 1e3
+
+
 def phase_autotune():
     """The sweep of ``kernels/autotune.py`` on the card into a temporary
     table; each class's winner and times. Gate: every (head_dim, dtype)
@@ -3577,6 +3601,10 @@ def phase_autotune():
                     str(r.get("split", "kernel")): r[field] * 1e3
                     for r in rows if r["backend"] == "kernel"},
                 "shape": bench["sweep"][key]["shape"]}
+            if key.startswith("flash_decode"):
+                classes[key]["bound_ms"] = _decode_bound_ms(
+                    classes[key]["shape"])
+                classes[key]["bound_by"] = "bytes"
             log("autotune", cls=key, **classes[key])
         log("autotune", sweep_seconds=sweep_s,
             decode_splits=bench["decode_splits"], meta=table["meta"])
@@ -3867,52 +3895,66 @@ def _fleet_run(label, m, fcfg, chaos, rep, ref, crcs, seconds, agents_up,
 # ---------------------------------------------------------------------- #
 # phase 19: sharded training on a (1, 1) mesh, and the dry-run
 # ---------------------------------------------------------------------- #
-# the dry-run's records: (arch, extra flags); minicpm-2b on both meshes
-DRYRUN_RUNS = (("minicpm-2b", ["--both-meshes"]), ("qwen2-vl-2b", []))
-DRYRUN_RECORDS = (("minicpm-2b", "16x16"), ("minicpm-2b", "2x16x16"),
-                  ("qwen2-vl-2b", "16x16"))
-DRYRUN_TIMEOUT_S = 600
+# the dry-run's processes: (arch, shape, extra flags); minicpm-2b on both
+# meshes, and one record of each architecture whose catalogue entry
+# failed before its repair (the MoE experts on DTensors, zamba2-7b's conv
+# and SSD chunks, xlstm-1.3b's sLSTM state and loops, llama3-405b's 16
+# micro-batches), at the shape that shows the fix
+DRYRUN_RUNS = (("minicpm-2b", "train_4k", ["--both-meshes"]),
+               ("qwen2-vl-2b", "train_4k", []),
+               ("llama4-maverick-400b-a17b", "prefill_32k", []),
+               ("zamba2-7b", "prefill_32k", []),
+               ("xlstm-1.3b", "train_4k", []),
+               ("xlstm-1.3b", "decode_32k", []),
+               ("llama3-405b", "train_4k", []))
+DRYRUN_RECORDS = (("minicpm-2b", "train_4k", "16x16"),
+                  ("minicpm-2b", "train_4k", "2x16x16"),
+                  ("qwen2-vl-2b", "train_4k", "16x16"),
+                  ("llama4-maverick-400b-a17b", "prefill_32k", "16x16"),
+                  ("zamba2-7b", "prefill_32k", "16x16"),
+                  ("xlstm-1.3b", "train_4k", "16x16"),
+                  ("xlstm-1.3b", "decode_32k", "16x16"),
+                  ("llama3-405b", "train_4k", "16x16"))
+DRYRUN_TIME_LIMIT_S = 300       # a record's host seconds (--time-limit)
+DRYRUN_TIMEOUT_S = 600          # all of them, from their start
+DRYRUN_NICE = 19                # below the smoke's own process
 
 
 def _start_dryrun(out_dir: str) -> list:
-    """The dry-run's processes on the host, started together: each
-    traces its records at train_4k and writes them to its own file."""
+    """The dry-run's processes on the host, started together at the
+    lowest CPU priority (they share the host with the timed phases):
+    each traces its records and writes them to its own file."""
     env = dict(os.environ, PYTHONPATH=SRC)
     procs = []
-    for arch, flags in DRYRUN_RUNS:
-        out = os.path.join(out_dir, f"{arch}.json")
-        log_f = open(os.path.join(out_dir, f"{arch}.log"), "w")
+    for arch, shape, flags in DRYRUN_RUNS:
+        out = os.path.join(out_dir, f"{arch}_{shape}.json")
+        log_f = open(os.path.join(out_dir, f"{arch}_{shape}.log"), "w")
         procs.append((out, log_f, subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", "train_4k", "--out", out] + flags,
-            stdout=log_f, stderr=subprocess.STDOUT, env=env)))
+             arch, "--shape", shape, "--time-limit",
+             str(DRYRUN_TIME_LIMIT_S), "--out", out] + flags,
+            stdout=log_f, stderr=subprocess.STDOUT, env=env,
+            preexec_fn=lambda: os.nice(DRYRUN_NICE))))
     return procs
 
 
 def _finish_dryrun(procs, t_end: float) -> list:
-    """Wait for the dry-run's processes (until ``t_end``), kill any that
-    is still running, and return their records."""
+    """Wait for the dry-run's processes (until ``t_end``) and return
+    their records (``main`` kills any still running)."""
     records = []
-    try:
-        for out, log_f, proc in procs:
-            rc = proc.wait(timeout=max(t_end - time.perf_counter(), 1.0))
-            log_f.close()
-            if rc != 0:
-                with open(log_f.name) as f:
-                    tail = f.read()[-3000:]
-                raise AssertionError(f"sharded: dry-run exited {rc}: {tail}")
-            with open(out) as f:
-                records += json.load(f)
-    finally:
-        for _, log_f, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log_f.close()
+    for out, log_f, proc in procs:
+        rc = proc.wait(timeout=max(t_end - time.perf_counter(), 1.0))
+        log_f.close()
+        if rc != 0:
+            with open(log_f.name) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"sharded: dry-run exited {rc}: {tail}")
+        with open(out) as f:
+            records += json.load(f)
     return records
 
 
-def phase_sharded(base):
+def phase_sharded(base, dry):
     """(a) ``launch.train`` as phase ``train`` ran it (minicpm-2b, full
     width and depth, bf16, B 4, seq 2048, accum 2, 3 steps, with a
     checkpoint), now with ``--distributed``: an ``nccl`` world of one
@@ -3922,14 +3964,22 @@ def phase_sharded(base):
     Required: every parameter at its placements; the per-step losses and
     the checkpoint's CRC those of phase ``train``'s run, bitwise; the
     flash launches equal to that run's. Prints both runs' seconds a step
-    (DTensor's host cost on a 1 x 1 mesh) and peak memory. (b) The
-    dry-run on the host, in processes started when the phase starts:
-    minicpm-2b at train_4k on 16 x 16 and 2 x 16 x 16, qwen2-vl-2b on
-    16 x 16. Required: each record ``ok``. Prints per-device FLOPs,
-    collective bytes by kind, argument and temporary bytes against this
-    card's memory, and the roofline terms at the H100's rates."""
-    import shutil
-    import tempfile
+    (DTensor's host cost on a 1 x 1 mesh; an earlier run read 2.026 s
+    with no dry-run beside it) and peak memory. (b) The dry-run on the
+    host, in ``dry``: (processes, their start) from ``_start_dryrun``,
+    started before phase ``families`` at the lowest priority, so that
+    they end before the sharded steps (started after them, they would
+    add their ~110 s to the smoke's 1200; beside ``families``,
+    ``xlstm_whisper`` and ``fleet`` they moved none of those phases'
+    readings past the runs' own spread, PERF.md §6):
+    ``DRYRUN_RECORDS`` (minicpm-2b at train_4k on 16 x 16 and 2
+    x 16 x 16, qwen2-vl-2b on 16 x 16, and on 16 x 16 llama4-maverick's
+    and zamba2-7b's prefill_32k, xlstm-1.3b's train_4k and decode_32k,
+    llama3-405b's train_4k). Required: each record ``ok``. Prints each
+    record's host seconds, per-device FLOPs, collective bytes by kind,
+    argument and temporary bytes against this card's memory, the loop
+    trips counted from an identical one, and the roofline terms at the
+    H100's rates; and how long the phase waited for them."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
@@ -3939,98 +3989,94 @@ def phase_sharded(base):
     from repro_torch.sharding.rules import make_rules
     from repro_torch.tree import flatten
     t_phase = time.perf_counter()
-    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
-    procs = _start_dryrun(dry_dir)
+    procs, t_dry = dry
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    ckdir = _checkpoint_dir(TRAIN_CKPT_BYTES)
     try:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        _reset_all()
-        ckdir = _checkpoint_dir(TRAIN_CKPT_BYTES)
-        try:
-            path = os.path.join(ckdir, "sharded.npz")
-            t0 = time.perf_counter()
-            res = train.run(TRAIN_ARGS + ["--distributed", "--checkpoint",
-                                          path])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            crc = checkpoint_crc(path)
-        finally:
-            shutil.rmtree(ckdir, ignore_errors=True)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        launches = _launches()
-        if dist.is_initialized():
-            raise AssertionError("sharded: the driver left its group")
-        want = flatten(specs.param_shardings(make_rules(res.mesh),
-                                             res.params))
-        off_plan = [k for k, t in flatten(res.params).items()
-                    if not isinstance(t, DTensor)
-                    or tuple(t.placements) != tuple(want[k])]
-        mesh_shape = list(res.mesh.shape)
-        losses, s_step = res.losses, res.loop_seconds / len(res.losses)
-        del res
-        torch.cuda.empty_cache()
-        row = {"run": "launch.train --distributed",
-               "args": " ".join(TRAIN_ARGS + ["--distributed"]),
-               "mesh": mesh_shape, "params_off_plan": off_plan,
-               "losses": losses, "losses_unsharded": base["losses"],
-               "losses_equal": losses == base["losses"],
-               "loss_diff": [a - b for a, b in zip(losses,
-                                                    base["losses"])],
-               "crc": crc, "crc_unsharded": base["crc"],
-               "crc_equal": crc == base["crc"],
-               "s_per_step": s_step,
-               "s_per_step_unsharded": base["s_per_step"],
-               "host_cost_s_per_step": s_step - base["s_per_step"],
-               "wall_s_with_init_and_checkpoint": wall,
-               "max_memory_allocated_gb": peak_gb,
-               "max_memory_allocated_gb_unsharded":
-                   base["max_memory_allocated_gb"],
-               "launches": launches, "launches_unsharded": base["launches"]}
-        log("sharded", **row)
-        if off_plan:
-            raise AssertionError(f"sharded: parameters off their plan: "
-                                 f"{off_plan[:5]}")
-        if mesh_shape != [1, 1]:
-            raise AssertionError(f"sharded: mesh {mesh_shape}, not (1, 1)")
-        if launches != base["launches"] or not all(
-                launches[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
-                                          "flash_bwd_dkdv")):
-            raise AssertionError(f"sharded: launches {launches} against "
-                                 f"{base['launches']}")
-        if not (row["losses_equal"] and row["crc_equal"]):
-            raise AssertionError("sharded: the sharded run parts from the "
-                                 f"unsharded one: {row}")
-        records = _finish_dryrun(procs, t_phase + DRYRUN_TIMEOUT_S)
-        cap = hbm_capacity()
-        got = {(r["arch"], r["mesh"]): r for r in records}
-        for key in DRYRUN_RECORDS:
-            r = got.get(key)
-            if r is None or r["status"] != "ok":
-                raise AssertionError(f"sharded: dry-run {key}: {r}")
-            mem = r["memory_analysis"]
-            log("sharded", dryrun=f"{key[0]} x train_4k x {key[1]}",
-                status=r["status"], n_devices=r["n_devices"],
-                accum_steps=r["accum_steps"],
-                host_seconds_trace=r["seconds_trace"],
-                flops_per_device=r["flops_per_device"],
-                bytes_per_device=r["bytes_per_device"],
-                collective_bytes_per_device=r["collective_bytes_per_device"],
-                n_collectives={k: r[k] for k in (
-                    "n_allgather", "n_allreduce", "n_reducescatter",
-                    "n_alltoall", "n_collectivepermute")},
-                argument_bytes=mem["argument_bytes"],
-                temp_bytes=mem["temp_bytes"], hbm_capacity_bytes=cap,
-                fits=mem["argument_bytes"] + mem["temp_bytes"] <= cap,
-                roofline={k: r["roofline"][k] for k in (
-                    "compute_s", "memory_s", "collective_s", "dominant")},
-                rates_card=CARD)
+        path = os.path.join(ckdir, "sharded.npz")
+        t0 = time.perf_counter()
+        res = train.run(TRAIN_ARGS + ["--distributed", "--checkpoint",
+                                      path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        crc = checkpoint_crc(path)
     finally:
-        for _, log_f, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log_f.close()
-        shutil.rmtree(dry_dir, ignore_errors=True)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = _launches()
+    if dist.is_initialized():
+        raise AssertionError("sharded: the driver left its group")
+    want = flatten(specs.param_shardings(make_rules(res.mesh),
+                                         res.params))
+    off_plan = [k for k, t in flatten(res.params).items()
+                if not isinstance(t, DTensor)
+                or tuple(t.placements) != tuple(want[k])]
+    mesh_shape = list(res.mesh.shape)
+    losses, s_step = res.losses, res.loop_seconds / len(res.losses)
+    del res
+    torch.cuda.empty_cache()
+    row = {"run": "launch.train --distributed",
+           "args": " ".join(TRAIN_ARGS + ["--distributed"]),
+           "mesh": mesh_shape, "params_off_plan": off_plan,
+           "losses": losses, "losses_unsharded": base["losses"],
+           "losses_equal": losses == base["losses"],
+           "loss_diff": [a - b for a, b in zip(losses,
+                                                base["losses"])],
+           "crc": crc, "crc_unsharded": base["crc"],
+           "crc_equal": crc == base["crc"],
+           "s_per_step": s_step,
+           "s_per_step_first_sharded_run": 2.026,
+           "s_per_step_unsharded": base["s_per_step"],
+           "host_cost_s_per_step": s_step - base["s_per_step"],
+           "wall_s_with_init_and_checkpoint": wall,
+           "max_memory_allocated_gb": peak_gb,
+           "max_memory_allocated_gb_unsharded":
+               base["max_memory_allocated_gb"],
+           "launches": launches, "launches_unsharded": base["launches"]}
+    log("sharded", **row)
+    if off_plan:
+        raise AssertionError(f"sharded: parameters off their plan: "
+                             f"{off_plan[:5]}")
+    if mesh_shape != [1, 1]:
+        raise AssertionError(f"sharded: mesh {mesh_shape}, not (1, 1)")
+    if launches != base["launches"] or not all(
+            launches[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkdv")):
+        raise AssertionError(f"sharded: launches {launches} against "
+                             f"{base['launches']}")
+    if not (row["losses_equal"] and row["crc_equal"]):
+        raise AssertionError("sharded: the sharded run parts from the "
+                             f"unsharded one: {row}")
+    t_wait = time.perf_counter()
+    records = _finish_dryrun(procs, t_dry + DRYRUN_TIMEOUT_S)
+    log("sharded", dryrun_wait_s=time.perf_counter() - t_wait,
+        dryrun_s_since_start=time.perf_counter() - t_dry)
+    cap = hbm_capacity()
+    got = {(r["arch"], r["shape"], r["mesh"]): r for r in records}
+    for key in DRYRUN_RECORDS:
+        r = got.get(key)
+        if r is None or r["status"] != "ok":
+            raise AssertionError(f"sharded: dry-run {key}: {r}")
+        mem = r["memory_analysis"]
+        log("sharded", dryrun=" x ".join(key),
+            status=r["status"], n_devices=r["n_devices"],
+            accum_steps=r["accum_steps"],
+            host_seconds_trace=r["seconds_trace"],
+            loop_trips_not_run=r["loop_trips_not_run"],
+            flops_per_device=r["flops_per_device"],
+            bytes_per_device=r["bytes_per_device"],
+            collective_bytes_per_device=r["collective_bytes_per_device"],
+            n_collectives={k: r[k] for k in (
+                "n_allgather", "n_allreduce", "n_reducescatter",
+                "n_alltoall", "n_collectivepermute")},
+            argument_bytes=mem["argument_bytes"],
+            temp_bytes=mem["temp_bytes"], hbm_capacity_bytes=cap,
+            fits=mem["argument_bytes"] + mem["temp_bytes"] <= cap,
+            roofline={k: r["roofline"][k] for k in (
+                "compute_s", "memory_s", "collective_s", "dominant")},
+            rates_card=CARD)
     log("sharded", seconds=time.perf_counter() - t_phase)
     return launches
 
@@ -4077,10 +4123,23 @@ def main() -> int:
     launches["flash_decode_paged"] = run(phase_engine)["flash_decode_paged"]
     tuned = run(phase_autotune)
     serve_paths = run(phase_hybrid_serve, tuned["table"])
-    family_paths = run(phase_families)
-    last_paths = run(phase_xlstm_whisper)
-    fleet_paths = run(phase_fleet)
-    launches_sharded = run(phase_sharded, train_base)
+    # phase sharded's dry-run traces on the host, at the lowest priority,
+    # beside phases families, xlstm_whisper and fleet (~280 s), so that
+    # they are done before the sharded steps
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dry = (_start_dryrun(dry_dir), time.perf_counter())
+    try:
+        family_paths = run(phase_families)
+        last_paths = run(phase_xlstm_whisper)
+        fleet_paths = run(phase_fleet)
+        launches_sharded = run(phase_sharded, train_base, dry)
+    finally:
+        for _, log_f, proc in dry[0]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_f.close()
+        shutil.rmtree(dry_dir, ignore_errors=True)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ssd

@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.sharding.hooks import as_dtensor, current_rules, is_dtensor
+from repro_torch.sharding.hooks import is_dtensor, on_local_blocks
 
 from . import autotune
 from . import flash_attention as _flash
@@ -64,64 +64,6 @@ def _resolve(kind: str, s: int, d: int, dtype, overrides: dict,
     return base
 
 
-def _sharding(mesh, batch: int, heads) -> tuple:
-    """(mesh dims that shard the batch, mesh dim that shards the heads or
-    None): the batch axes when their product divides ``batch``, 'model'
-    when its size divides every count in ``heads``."""
-    from repro_torch.sharding.rules import make_rules, mesh_sizes
-    ctx = current_rules()
-    rules = ctx["rules"] if ctx and ctx.get("rules") is not None \
-        else make_rules(mesh)
-    names, sizes = list(mesh.mesh_dim_names), mesh_sizes(mesh)
-    prod = 1
-    for a in rules.batch:
-        prod *= sizes[a]
-    b_dims = [names.index(a) for a in rules.batch] if batch % prod == 0 \
-        else []
-    tp = rules.tp
-    h_dim = names.index(tp) if tp in names and all(
-        h % sizes[tp] == 0 for h in heads) else None
-    return b_dims, h_dim
-
-
-def _placements(mesh, b_dims, h_dim, batch_at, head_at, grad=False
-                ) -> list:
-    """Placements of one operand: ``Shard(batch_at)`` on the batch mesh
-    dims, ``Shard(head_at)`` on the head mesh dim, ``Replicate()``
-    elsewhere. An operand without the dim (its position None) is whole
-    on those ranks; with ``grad`` its gradient there is each rank's
-    partial sum (``Partial()``): the SSD's A summed over the local batch,
-    its B and C over the local heads."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    out = [Replicate()] * mesh.ndim
-    for i in b_dims:
-        out[i] = Shard(batch_at) if batch_at is not None else (
-            Partial() if grad else Replicate())
-    if h_dim is not None:
-        out[h_dim] = Shard(head_at) if head_at is not None else (
-            Partial() if grad else Replicate())
-    return out
-
-
-def _on_local_blocks(fn, args, roles, out_roles, batch: int, heads):
-    """``fn`` on each rank's local blocks of ``args`` through
-    ``local_map``. ``roles``: each operand's (batch dim, head dim), None
-    for a dim it lacks; ``out_roles`` the same for each output."""
-    from torch.distributed.tensor.experimental import local_map
-    mesh = next(a for a in args if is_dtensor(a)).device_mesh
-    b_dims, h_dim = _sharding(mesh, batch, heads)
-    ins = tuple(_placements(mesh, b_dims, h_dim, *r) for r in roles)
-    grads = tuple(_placements(mesh, b_dims, h_dim, *r, grad=True)
-                  for r in roles)
-    outs = tuple(_placements(mesh, b_dims, h_dim, *r) for r in out_roles)
-    # one output's placements are a list; several outputs', a tuple
-    mapped = local_map(fn, out_placements=outs if len(outs) > 1 else outs[0],
-                       in_placements=ins, in_grad_placements=grads,
-                       device_mesh=mesh, redistribute_inputs=True)
-    return mapped(*(as_dtensor(a, mesh) if isinstance(a, torch.Tensor)
-                    else a for a in args))
-
-
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """q: (B, Sq, H, D), k/v: (B, Sk, H, D) (model layout) -> (B, Sq, H,
     D); any sequence lengths. Query row i sits at absolute position
@@ -132,7 +74,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     attention with Sk != Sq) forward only."""
     if is_dtensor(q) or is_dtensor(k) or is_dtensor(v):
         role = (0, 2)
-        return _on_local_blocks(
+        return on_local_blocks(
             lambda q, k, v: flash_attention(q, k, v, causal=causal,
                                             window=window,
                                             q_offset=q_offset),
@@ -161,7 +103,7 @@ def flash_decode(q, k, v, lengths, *, split=None):
     ``split``: key positions a block takes (None: the tuned split of this
     (head_dim, dtype), else 256)."""
     if any(is_dtensor(t) for t in (q, k, v, lengths)):
-        return _on_local_blocks(
+        return on_local_blocks(
             lambda q, k, v, n: flash_decode(q, k, v, n, split=split),
             (q, k, v, lengths), ((0, 2), (0, 2), (0, 2), (0, None)),
             ((0, 2),), q.shape[0], (q.shape[2], k.shape[2]))
@@ -179,7 +121,7 @@ def flash_decode_paged(q, k_pool, v_pool, pages, lengths, *, split=None):
     so a paged cache and a dense one give the same bits."""
     if any(is_dtensor(t) for t in (q, k_pool, v_pool, pages, lengths)):
         # the pools are shared by every slot: heads only, never batch
-        return _on_local_blocks(
+        return on_local_blocks(
             lambda q, k, v, pg, n: flash_decode_paged(q, k, v, pg, n,
                                                       split=split),
             (q, k_pool, v_pool, pages, lengths),
@@ -196,7 +138,7 @@ def ssd(x, dt, A, Bm, Cm):
     y (B,S,H,P). Differentiable in all five operands; any S. No knob to
     tune (``autotune.DEFAULTS["ssd"]`` is empty)."""
     if any(is_dtensor(t) for t in (x, dt, A, Bm, Cm)):
-        return _on_local_blocks(
+        return on_local_blocks(
             ssd, (x, dt, A, Bm, Cm),
             ((0, 2), (0, 2), (None, 0), (0, None), (0, None)), ((0, 2),),
             x.shape[0], (x.shape[2],))
@@ -209,7 +151,7 @@ def ssd_prefill(x, dt, A, Bm, Cm, init_state):
     init_state (B,H,P,N) -> (y (B,S,H,P), final state (B,H,P,N) f32).
     Forward only (serving); any S."""
     if any(is_dtensor(t) for t in (x, dt, A, Bm, Cm, init_state)):
-        return _on_local_blocks(
+        return on_local_blocks(
             ssd_prefill, (x, dt, A, Bm, Cm, init_state),
             ((0, 2), (0, 2), (None, 0), (0, None), (0, None), (0, 1)),
             ((0, 2), (0, 1)), x.shape[0], (x.shape[2],))

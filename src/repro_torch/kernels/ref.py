@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.util.loops import scan
+
 
 def score_mask(s: int, *, causal: bool, window: int, device, sk=None,
                q_offset: int = 0) -> torch.Tensor:
@@ -236,18 +238,21 @@ def ssd_fwd_ref(x, dt, A, Bm, Cm, *, chunk: int, return_states=False,
     What the forward kernel computes, in the reference's ``_ssd_kernel``
     order."""
     xs, dts, dAs, bs, cs = _ssd_chunks(x, dt, A, Bm, Cm, chunk)
-    state = _init_state(init_state, x, Bm.shape[-1], xs[0].dtype)
-    ys, states = [], []
-    for xc, dtc, dAc, bc, cc in zip(xs, dts, dAs, bs, cs):
-        states.append(state)
+
+    def step(c, state):
+        xc, dtc, dAc, bc, cc = xs[c], dts[c], dAs[c], bs[c], cs[c]
         cum, total, _, _, m = _chunk_fwd(xc, dtc, dAc, bc, cc)
         y_intra = torch.einsum("bijh,bjhp->bihp", m, xc * dtc[..., None])
         y_inter = torch.einsum("bin,bhpn->bihp", cc, state) \
             * torch.exp(cum)[..., None]
         w = torch.exp(total[:, None] - cum) * dtc                # (b,L,h)
         s_local = torch.einsum("blhp,bln->bhpn", xc * w[..., None], bc)
-        state = torch.exp(total)[..., None, None] * state + s_local
-        ys.append(y_intra + y_inter)
+        out = torch.exp(total)[..., None, None] * state + s_local
+        return out, (state, y_intra + y_inter)
+
+    state, outs = scan(step, _init_state(init_state, x, Bm.shape[-1],
+                                         xs[0].dtype), len(xs), uniform=True)
+    states, ys = zip(*outs)
     y = torch.cat(ys, dim=1).to(x.dtype)
     extra = ([torch.stack(states, dim=2)] if return_states else []) \
         + ([state] if return_final else [])
@@ -311,12 +316,16 @@ def ssd_bwd_ref(x, dt, A, Bm, Cm, states, dy, *, chunk: int):
     xs, dts, dAs, bs, cs = _ssd_chunks(x, dt, A, Bm, Cm, chunk)
     dys = dy.to(xs[0].dtype).split(chunk, dim=1)
     s0s = states.to(xs[0].dtype).unbind(2)
-    ds1 = torch.zeros_like(s0s[0])                       # d(final state)
-    outs = []
-    for c in reversed(range(len(xs))):
-        *grads, ds1 = _bwd_chunk(xs[c], dts[c], dAs[c], bs[c], cs[c],
+    nc = len(xs)
+
+    def step(j, ds1):
+        c = nc - 1 - j                                   # last chunk first
+        *grads, ds0 = _bwd_chunk(xs[c], dts[c], dAs[c], bs[c], cs[c],
                                  s0s[c], ds1, dys[c])
-        outs.append(grads)
+        return ds0, grads
+
+    # from d(final state) = 0
+    _, outs = scan(step, torch.zeros_like(s0s[0]), nc, uniform=True)
     dx, ddt, dda, db, dc = (torch.cat(parts[::-1], dim=1)
                             for parts in zip(*outs))
     return dx.to(x.dtype), ddt, dda, db, dc

@@ -19,7 +19,13 @@ Each record keeps the reference's keys where the meaning carries over
 (``arch``, ``shape``, ``mesh``, ``status``, ``reason``, ``n_devices``,
 ``accum_steps``, ``memory_analysis``, ``n_allgather`` ... and ``roofline``
 with ``dominant``) and names the rest for what it counts, all per device
-(one rank), every loop trip counted since the run is eager:
+(one rank). A loop of the step that goes through ``util.loops.scan``
+(micro-batches, the sLSTM's tokens, the mLSTM's and the plain SSD's
+chunks) is traced until two trips in a row are identical, and the
+trips that would repeat them are counted from the second, not run
+(``OpCounter``; the reference's ``hlo_flops`` counts a ``while`` body once
+times its trip count); every count equals that of a trace that runs
+every trip:
 
 * ``flops_per_device``: ``torch.utils.flop_counter``'s formulas over the
   rank's local ops (matmuls, convolutions, attention; elementwise work
@@ -37,6 +43,7 @@ with ``dominant``) and names the rest for what it counts, all per device
   stand-ins DTensor makes to propagate shapes: 1.6 TB on minicpm-2b's
   train_4k);
 * ``seconds_trace``: host seconds the run took;
+* ``loop_trips_not_run``: the loop trips counted from an identical one;
 * ``roofline``: each term at an H100's rates (``launch/mesh.py``).
 
 Records merge by (arch, shape, mesh) into
@@ -45,13 +52,14 @@ record's counted ops (op, FLOPs, bytes, collective kind and bytes, with a
 count of identical ones) as JSON lines beside it, from which
 ``launch.reanalyze`` recomputes the totals without tracing again. The
 reference's HLO parsers (``hlo_stats.py``, ``hlo_flops.py``) have no
-counterpart: the port has no HLO, and eager counting sees every trip.
+counterpart: the port has no HLO.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -175,6 +183,7 @@ def _nbytes(x) -> int:
     return 0
 
 
+@functools.lru_cache(maxsize=None)
 def _is_view(func) -> bool:
     """An op that returns an alias of an input and writes nothing."""
     schema = func._schema
@@ -182,6 +191,51 @@ def _is_view(func) -> bool:
                  for a in schema.arguments)
     return bool(schema.returns) and not writes and all(
         r.alias_info is not None for r in schema.returns)
+
+
+def _counted(ops) -> Counter:
+    """The ops that add to a total: a view of a tensor first counted in
+    this trip (a loop's carry in its first trip) adds nothing."""
+    return Counter({k: n for k, n in ops.items() if any(k[1:])})
+
+
+class _Frame:
+    """What one trip (or the whole step, at the bottom of the stack)
+    counted: its ops, its peak of live bytes, the storages it made."""
+    __slots__ = ("ops", "peak", "made", "serial")
+
+    def __init__(self, live: int, serial: int):
+        self.ops: Counter = Counter()
+        self.peak = live
+        self.made: list = []        # storage numbers (OpCounter._mark)
+        self.serial = serial        # ranges registered before it began
+
+
+class _Range:
+    """The autograd nodes of a scaled loop's counted trip (``weight`` its
+    copies + 1: an op its backward runs counts that many times) or of
+    its last trip (``weight`` 1), sequence numbers [start, end); ``rep``
+    the counted trip's start."""
+    __slots__ = ("start", "end", "weight", "rep", "parent", "serial")
+
+    def __init__(self, start, end, weight, rep, serial):
+        self.start, self.end, self.weight, self.rep = start, end, weight, rep
+        self.parent, self.serial = None, serial
+
+
+class _Phantom:
+    """The live bytes of the trips a scaled loop did not run: ``parts``,
+    for each storage the counted trip kept, the bytes of its copies. A
+    part is released when its storage is freed; if a backward frees it,
+    the part waits (``deferred``) until the backward has left the
+    counted trip (its nodes' lowest sequence number ``bound``), or left
+    autograd, as the copies' own trips' backwards run before that."""
+    __slots__ = ("parts", "deferred", "bound", "open", "frees")
+
+    def __init__(self, parts):
+        self.parts, self.deferred, self.bound = parts, 0, None
+        self.open = False           # the loop's last trip is running
+        self.frees = False          # the trip freed what came before it
 
 
 class OpCounter:
@@ -193,17 +247,44 @@ class OpCounter:
     op once on stand-ins of the global shapes to learn its output's
     metadata; those stand-ins descend from no input of the step, so only
     an op that reads a tensor of the step (``track``: the inputs' local
-    blocks, then every counted op's outputs) is counted."""
+    blocks, then every counted op's outputs) is counted.
 
-    def __init__(self, deadline: Optional[float] = None):
+    Loops through ``util.loops.scan`` (``scale_loops``) are counted from
+    their trips: trips run until two in a row count the same ops; the
+    trips after the second of them are not run and count as many copies
+    of it (each collective too), but for the last, which runs (a ragged
+    one, or one whose backward differs) unless the loop is ``uniform``.
+    The copies' live bytes join the step's: the peak over them is the
+    counted trip's peak raised by the growth of the trips before it, and
+    they are released with the storages the counted trip kept
+    (``_Phantom``). A counted trip's backward, where autograd runs it
+    after the loop, counts its ops as many more times: the op's autograd
+    node (``torch._C._current_autograd_node``) falls in the trip's range
+    of sequence numbers. The totals equal a trace that runs every trip
+    (``tests/test_torch_dryrun_loops.py``)."""
+
+    def __init__(self, deadline: Optional[float] = None,
+                 scale_loops: bool = True):
         from torch.utils.weak import WeakIdKeyDictionary
         self.ops: Counter = Counter()   # (op, flops, bytes, kind, cbytes)
         self.deadline = deadline
+        self.scale_loops = scale_loops
         self._real: set = set()         # ids of the step's live tensors
         self._storages = WeakIdKeyDictionary()
         self.live_bytes = 0             # bytes of the step's live storages
         self.peak_bytes = 0
         self._mode = None
+        self._prev_observer = None
+        self._frames = [_Frame(0, 0)]
+        self._frames[0].ops = self.ops
+        self._serial = 0                # the last storage's number
+        self._sizes: Dict[int, int] = {}    # live storages' bytes
+        self._ranges: list = []         # _Range, in registration order
+        self._keys: list = []           # sorted (start, -end, index)
+        self._waiting: Dict[int, list] = {}   # storage number -> phantoms
+        self._bound: list = []          # phantoms waiting on a backward
+        self._paused = False
+        self.trips_not_run = 0          # loop trips counted, not run
 
     def _mark(self, t) -> None:
         """Add ``t`` to the step's tensors while it lives (by id: a
@@ -218,13 +299,209 @@ class OpCounter:
         if st in self._storages:
             return
         n = st.nbytes()
-        self._storages[st] = n
-        weakref.finalize(st, self._free, n)
+        sid = self._serial = self._serial + 1   # ids are reused; this not
+        self._storages[st] = sid
+        self._sizes[sid] = n
+        weakref.finalize(st, self._free, n, sid)
         self.live_bytes += n
         self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        frame = self._frames[-1]
+        frame.made.append(sid)
+        frame.peak = max(frame.peak, self.live_bytes)
 
-    def _free(self, n: int) -> None:
+    def _free(self, n: int, sid: int) -> None:
         self.live_bytes -= n
+        self._sizes.pop(sid, None)
+        phantoms = self._waiting.pop(sid, None)
+        if not phantoms:
+            return
+        # freed by a scaled loop's backward (or by code that runs outside
+        # any loop's nodes: a recompute, a Function's backward, a forward)
+        rng = self._range_of_node()
+        for ph in phantoms:
+            part = ph.parts.pop(sid, None)
+            if part is None or ph.open:
+                # a carry the last trip replaced: its copies were freed
+                # by the copies that followed them
+                continue
+            if rng is None:
+                self.live_bytes -= part
+                continue
+            if ph.bound is None:
+                ph.bound = rng.rep
+            if not ph.deferred:
+                self._bound.append(ph)
+            ph.deferred += part
+
+    # ------------------------------------------------------------------ #
+    # loops
+    # ------------------------------------------------------------------ #
+    def _range_of_node(self) -> Optional[_Range]:
+        """The innermost scaled trip whose autograd nodes hold the node
+        autograd is running (None outside a backward)."""
+        import bisect
+        import torch
+        if not self._ranges:
+            return None
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return None
+        seq = node._sequence_nr()
+        i = bisect.bisect_right(self._keys, (seq, float("inf"))) - 1
+        rng = self._ranges[self._keys[i][2]] if i >= 0 else None
+        while rng is not None and not rng.start <= seq < rng.end:
+            rng = rng.parent
+        return rng
+
+    def _weight(self) -> int:
+        """How many times an op counts: in the backward of a scaled trip
+        registered since the innermost trip began, that trip's weight
+        (and its enclosing scaled trips')."""
+        if not self._ranges:
+            return 1
+        rng = self._range_of_node()
+        serial, w = self._frames[-1].serial, 1
+        while rng is not None:
+            if rng.serial >= serial:
+                w *= rng.weight
+            rng = rng.parent
+        return w
+
+    def _release_bound(self) -> None:
+        """Release the deferred parts of phantoms whose counted trip's
+        backward has ended: autograd runs an older node, or none."""
+        import torch
+        node = torch._C._current_autograd_node()
+        seq = -1 if node is None else node._sequence_nr()
+        keep = []
+        for ph in self._bound:
+            if node is None or (ph.bound is not None and seq < ph.bound):
+                self.live_bytes -= ph.deferred
+                ph.deferred = 0
+            else:
+                keep.append(ph)
+        self._bound = keep
+
+    def _register(self, start: int, end: int, weight: int,
+                  rep: int) -> None:
+        import bisect
+        if end <= start:
+            return
+        rng = _Range(start, end, weight, rep, len(self._ranges))
+        lo = bisect.bisect_left(self._keys, (start, -end, -1))
+        hi = bisect.bisect_left(self._keys, (end, float("-inf"), -1))
+        for _, _, j in self._keys[lo:hi]:
+            inner = self._ranges[j]
+            if inner.parent is None and inner.end <= end:
+                inner.parent = rng
+        self._ranges.append(rng)
+        bisect.insort(self._keys, (start, -end, rng.serial))
+
+    def _storage_numbers(self, tree) -> list:
+        """The numbers of the counted storages under ``tree``'s tensors
+        (DTensors by their local blocks)."""
+        import torch
+        from torch.distributed.tensor import DTensor
+        from torch.utils._pytree import tree_leaves
+        out = []
+        for t in tree_leaves(tree):
+            if isinstance(t, DTensor):
+                t = t._local_tensor
+            if isinstance(t, torch.Tensor):
+                sid = self._storages.get(t.untyped_storage())
+                if sid is not None:
+                    out.append(sid)
+        return out
+
+    def _placeholder(self, out):
+        """A trip's outputs as detached aliases (uncounted): they stand
+        for the outputs of the trips not run."""
+        import torch
+        from torch.utils._pytree import tree_map
+        self._paused = True
+        try:
+            return tree_map(lambda x: x.detach() if isinstance(
+                x, torch.Tensor) else x, out)
+        finally:
+            self._paused = False
+
+    def scan(self, body, carry, n: int, uniform: bool = False):
+        """``util.loops.scan`` counted from its trips (see the class); a
+        ``uniform`` loop's last trip is counted as a copy too."""
+        import torch
+        seq = torch._C._autograd._get_sequence_nr
+        outs, prev, t, ph, rep = [], None, 0, None, None
+        while t < n:
+            live0, seq0 = self.live_bytes, seq()
+            frame = _Frame(live0, len(self._ranges))
+            self._frames.append(frame)
+            try:
+                carry, out = body(t, carry)
+            finally:
+                self._frames.pop()
+                parent = self._frames[-1]
+                parent.ops.update(frame.ops)
+                parent.peak = max(parent.peak, frame.peak)
+                if len(self._frames) > 1:
+                    parent.made.extend(frame.made)
+            outs.append(out)
+            # by its ops alone: a recompute under activation checkpointing
+            # (which keeps what the first pass let go) must repeat the
+            # first pass's trips
+            sig = _counted(frame.ops)
+            skip = n - (1 if uniform else 2) - t
+            if rep is not None:             # the last trip, after copies
+                self._register(seq0, seq(), 1, rep)
+                break
+            if skip > 0 and sig == prev:
+                ph = self._repeat(frame, live0, skip, seq0, seq())
+                if ph is not None:
+                    ph.open = True
+                outs.extend([self._placeholder(out)] * skip)
+                if uniform:
+                    if ph is not None and ph.frees:
+                        # the trip freed its predecessor's carry, so each
+                        # copy freed the one before it: the carry (but
+                        # what the trip also handed out) stands for the
+                        # last copy's alone
+                        kept = set(self._storage_numbers(out))
+                        for sid in self._storage_numbers(carry):
+                            if sid not in kept:
+                                ph.parts.pop(sid, None)
+                    break
+                t, rep = n - 1, seq0
+            else:
+                prev, t = sig, t + 1
+        if ph is not None:
+            ph.open = False
+        return carry, outs
+
+    def _repeat(self, frame, live0: int, m: int, seq0: int,
+                seq1: int) -> Optional[_Phantom]:
+        """Count ``m`` more copies of the trip just counted (``frame``,
+        which began at ``live0`` live bytes and sequence number
+        ``seq0``); returns the copies' live bytes, if they grow."""
+        parent = self._frames[-1]
+        self.trips_not_run += m
+        for key, c in frame.ops.items():
+            parent.ops[key] += c * m
+        grow = self.live_bytes - live0
+        peak = self.live_bytes + max((m - 1) * grow, 0) + frame.peak - live0
+        self.peak_bytes = max(self.peak_bytes, peak)
+        parent.peak = max(parent.peak, peak)
+        self._register(seq0, seq1, m + 1, seq0)
+        if grow <= 0:
+            return None
+        # the copies' growth; each storage the trip kept stands for m
+        # copies, released with it (a carry that the last trip frees
+        # stands for copies freed among the copies: ``open``)
+        ph = _Phantom({sid: m * self._sizes[sid] for sid in frame.made
+                       if sid in self._sizes})
+        ph.frees = sum(ph.parts.values()) > m * grow
+        self.live_bytes += m * grow
+        for sid in ph.parts:
+            self._waiting.setdefault(sid, []).append(ph)
+        return ph
 
     def track(self, *trees) -> None:
         """Mark the tensors of ``trees`` (DTensors by their local blocks)
@@ -248,6 +525,7 @@ class OpCounter:
         from torch.utils._python_dispatch import TorchDispatchMode
         from torch.utils._pytree import tree_leaves
         from torch.utils.flop_counter import flop_registry
+        from repro_torch.util import loops
         counter = self
         skip = {torch.ops.aten.is_contiguous.default,
                 torch.ops.aten.is_contiguous.memory_format,
@@ -273,8 +551,11 @@ class OpCounter:
                     return NotImplemented
                 packet = func._overloadpacket
                 out = func(*args, **kwargs)
-                if any(isinstance(a, torch.Tensor)
-                       and id(a) in counter._real for a in leaves):
+                if not counter._paused and any(
+                        isinstance(a, torch.Tensor) and id(a) in
+                        counter._real for a in leaves):
+                    if counter._bound:
+                        counter._release_bound()
                     for t in tree_leaves(out):
                         if isinstance(t, torch.Tensor):
                             counter._mark(t)
@@ -284,9 +565,14 @@ class OpCounter:
 
         self._mode = Mode()
         self._mode.__enter__()
+        if self.scale_loops:
+            self._prev_observer = loops.set_observer(self)
         return self
 
     def __exit__(self, *exc):
+        from repro_torch.util import loops
+        if self.scale_loops:
+            loops.set_observer(self._prev_observer)
         self._mode.__exit__(*exc)
 
     def _record(self, func, packet, args, kwargs, out, registry) -> None:
@@ -303,8 +589,8 @@ class OpCounter:
             _nbytes(list(args)) + _nbytes(list(kwargs.values()))
             + _nbytes(out))
         cbytes = _nbytes(out) if kind else 0
-        self.ops[(f"{func.namespace}.{name}", flops, nbytes, kind,
-                  cbytes)] += 1
+        self._frames[-1].ops[(f"{func.namespace}.{name}", flops, nbytes,
+                              kind, cbytes)] += self._weight()
 
 
 def totals(ops) -> Dict[str, Any]:
@@ -451,11 +737,12 @@ def _argument_bytes(args) -> int:
 
 def trace(arch: str, shape_name: str, mesh, *, mesh_label: str,
           accum_steps: Optional[int] = None, optimized: bool = False,
-          time_limit: Optional[float] = None, shape=None, cfg=None
-          ) -> Dict[str, Any]:
+          time_limit: Optional[float] = None, shape=None, cfg=None,
+          scale_loops: bool = True) -> Dict[str, Any]:
     """One record (see the module docstring), on ``mesh`` of the running
     (fake) process group. The ops counted are kept under the private
-    key ``_ops`` for ``--keep-trace``."""
+    key ``_ops`` for ``--keep-trace``. ``scale_loops=False`` runs every
+    loop trip (the tests' reference for the scaled counts)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import INPUT_SHAPES, shape_applicable
@@ -475,7 +762,7 @@ def trace(arch: str, shape_name: str, mesh, *, mesh_label: str,
                                      optimized=optimized, shape=shape,
                                      cfg=cfg)
         arg_bytes = _argument_bytes(args)
-        counter = OpCounter(deadline)
+        counter = OpCounter(deadline, scale_loops=scale_loops)
         counter.track(*args)
         with activation_rules(rules.activation_table(), rules=rules):
             with counter:
@@ -485,6 +772,7 @@ def trace(arch: str, shape_name: str, mesh, *, mesh_label: str,
            "accum_steps": (accum_steps or S.TRAIN_ACCUM_STEPS.get(arch, 1)
                            if shape.kind == "train" else None),
            "seconds_trace": time.perf_counter() - t0,
+           "loop_trips_not_run": counter.trips_not_run,
            **totals(counter.ops),
            "memory_analysis": {
                "argument_bytes": arg_bytes,

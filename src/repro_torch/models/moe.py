@@ -28,7 +28,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.hooks import constrain, unshard
+from repro_torch.sharding.hooks import constrain, contiguous_local, unshard
 
 from .layers import linear, normal_init, swiglu
 
@@ -96,11 +96,16 @@ def _top_k_positions(mask_e: torch.Tensor, capacity: int):
 
 def _experts(w, xe: torch.Tensor) -> torch.Tensor:
     """SwiGLU of every expert on its slots: xe (G, E, C, d) -> (G, E, C,
-    d)."""
+    d). A DTensor operand of an expert product has its local block made
+    contiguous first (``contiguous_local``): the einsum reshapes it
+    expert-major, which DTensor's strides allow as a view and the local
+    block's layout does not."""
     dt = xe.dtype
+    xe = contiguous_local(xe)
     h = F.silu(torch.einsum("tecd,edf->tecf", xe, w["gate"].to(dt))) \
         * torch.einsum("tecd,edf->tecf", xe, w["up"].to(dt))
-    return torch.einsum("tecf,efd->tecd", h, w["down"].to(dt))
+    return torch.einsum("tecf,efd->tecd", contiguous_local(h),
+                        w["down"].to(dt))
 
 
 def moe_forward(p, x, *, n_experts: int, top_k: int,

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.sharding.hooks import constrain
+from repro_torch.sharding.hooks import constrain, is_dtensor, on_local_blocks
 
 from .layers import linear, normal_init, rms_norm
 
@@ -71,7 +71,15 @@ def _causal_conv(xbc, w, b, window=None):
     """Depthwise causal conv, xbc: (B, S, C), w: (k, C), continuing
     ``window`` (B, k - 1, C), the raw inputs before xbc (zeros if None):
     the reference's shifted sum, not ``F.conv1d`` (cuDNN would run an f32
-    conv in TF32)."""
+    conv in TF32). On DTensors it runs on each rank's local blocks
+    (``local_map``): the batch over the batch axes, the channels over
+    'model' (where it divides them, as ``act_inner`` shards them), the
+    sequence whole on every rank (gathered first if it came sharded)."""
+    if any(is_dtensor(t) for t in (xbc, w, b, window)):
+        args = (xbc, w, b) + (() if window is None else (window,))
+        roles = ((0, 2), (None, 1), (None, 0), (0, 2))[:len(args)]
+        return on_local_blocks(_causal_conv, args, roles, ((0, 2),),
+                               xbc.shape[0], (xbc.shape[2],))
     k, s = w.shape[0], xbc.shape[1]
     if window is None:
         pad = F.pad(xbc, (0, 0, k - 1, 0))

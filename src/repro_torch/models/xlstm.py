@@ -19,7 +19,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.hooks import constrain, split_last
+from repro_torch.sharding.hooks import (constrain, is_dtensor, merge_last,
+                                        on_local_blocks, split_last)
+from repro_torch.util.loops import scan
 
 from .layers import linear, normal_init, rms_norm
 
@@ -65,7 +67,25 @@ def mlstm_chunked(q, k, v, i_log, f_log, *, chunk=CHUNK, init_state=None,
                   return_state=False):
     """q/k/v: (B, S, H, D) f32; i_log/f_log: (B, S, H) f32 (f_log <= 0).
     Returns h (B, S, H, D) [, state (C, n, m)]. An S that ``chunk`` does
-    not divide runs as one chunk of S rows, as in the reference."""
+    not divide runs as one chunk of S rows, as in the reference. On
+    DTensors the scan runs on each rank's local blocks (``local_map``):
+    the batch over the batch axes, the heads over 'model' where it
+    divides them (DTensor has no rule for the ``flip`` in a cumsum's
+    backward)."""
+    args = (q, k, v, i_log, f_log) + tuple(init_state or ())
+    if any(is_dtensor(t) for t in args):
+        def local(*a):
+            out = mlstm_chunked(*a[:5], chunk=chunk,
+                                init_state=a[5:] or None,
+                                return_state=return_state)
+            return (out[0], *out[1]) if return_state else out
+
+        per_head, state = (0, 2), ((0, 1),) * 3
+        out = on_local_blocks(
+            local, args, (per_head,) * 5 + (state if init_state else ()),
+            (per_head,) + (state if return_state else ()), q.shape[0],
+            (q.shape[2],))
+        return (out[0], tuple(out[1:])) if return_state else out
     b, s, h, d = q.shape
     if s % chunk != 0:
         chunk = s
@@ -85,8 +105,9 @@ def mlstm_chunked(q, k, v, i_log, f_log, *, chunk=CHUNK, init_state=None,
         m = torch.zeros((b, h), dtype=torch.float32, device=q.device)
     else:
         C, n, m = init_state
-    outs = []
-    for c in range(nc):
+
+    def step(c, state):
+        C, n, m = state
         qi, ki, vi, ii, fi = qc[:, c], kc[:, c], vc[:, c], ic[:, c], fc[:, c]
         cum = torch.cumsum(fi, dim=1)                         # (b, L, h)
         total = cum[:, -1]                                    # (b, h)
@@ -103,7 +124,7 @@ def mlstm_chunked(q, k, v, i_log, f_log, *, chunk=CHUNK, init_state=None,
         n_t = torch.einsum("bljh,bjhd->blhd", scores, ki) + n[:, None] * inter
         qn = torch.einsum("blhd,blhd->blh", qi, n_t)
         denom = torch.maximum(qn.abs(), torch.exp(-m_t))
-        outs.append(h_num / denom[..., None])
+        out = h_num / denom[..., None]
         # end-of-chunk state
         a = total[:, None, :] - cum + ii                      # (b, L, h)
         m_next = torch.maximum(total + m, a.amax(dim=1))      # (b, h)
@@ -112,7 +133,11 @@ def mlstm_chunked(q, k, v, i_log, f_log, *, chunk=CHUNK, init_state=None,
         C = C * decay[..., None, None] \
             + torch.einsum("blh,blhd,blhe->bhde", w, ki, vi)
         n = n * decay[..., None] + torch.einsum("blh,blhd->bhd", w, ki)
-        m = m_next
+        return (C, n, m_next), out
+
+    # the last chunk is like the others unless autograd runs through them
+    (C, n, m), outs = scan(step, (C, n, m), nc,
+                           uniform=not torch.is_grad_enabled())
     out = torch.stack(outs, dim=1).reshape(b, s, h, d)
     if return_state:
         return out, (C, n, m)
@@ -130,17 +155,18 @@ def _mlstm_inputs(p, x, d_inner, n_heads):
     return q, k, v, z, i_log, f_log
 
 
-def _mlstm_out(p, y, z, x, d_inner):
-    b, s = y.shape[:2]
-    y = y.reshape(b, s, d_inner).to(x.dtype)
+def _mlstm_out(p, y, z, x):
+    """y (B, S, H, Dh) f32 -> the gated norm and the out projection (the
+    heads merged by ``merge_last``: 4 heads over a 16-way 'model' axis
+    could not take back a gradient sharded along d_inner)."""
+    y = merge_last(y, 2).to(x.dtype)
     return linear(p["out_proj"], rms_norm(p["norm"], y * F.silu(z)))
 
 
 def mlstm_forward(p, x, *, d_inner, n_heads):
     """x: (B, S, d_model) -> (B, S, d_model)."""
     q, k, v, z, i_log, f_log = _mlstm_inputs(p, x, d_inner, n_heads)
-    return _mlstm_out(p, mlstm_chunked(q, k, v, i_log, f_log), z, x,
-                      d_inner)
+    return _mlstm_out(p, mlstm_chunked(q, k, v, i_log, f_log), z, x)
 
 
 def mlstm_prefill(p, x, cache, *, d_inner, n_heads):
@@ -154,7 +180,7 @@ def mlstm_prefill(p, x, cache, *, d_inner, n_heads):
     cache["C"].copy_(C)
     cache["n"].copy_(n)
     cache["m"].copy_(m)
-    return _mlstm_out(p, y, z, x, d_inner), cache
+    return _mlstm_out(p, y, z, x), cache
 
 
 def mlstm_init_cache(batch, d_inner, n_heads, *, lead=(), device):
@@ -219,15 +245,35 @@ def _slstm_scan(p, u, h0, c0, n0, m0, n_heads):
     """u: (B, S, 4 d) f32 pre-activations from the input projection;
     h0, c0, n0, m0: (B, d) f32. One step a token, in order. The gates
     split the flattened (B, H 4 Dh) recurrent sum into four d-wide
-    blocks after the head-major reshape, as the reference does. Returns
-    (hs (B, S, d), (h, c, n, m) after the last token)."""
+    blocks after the head-major reshape, as the reference does, so one
+    step mixes the heads: only the batch splits the recurrence. On
+    DTensors the scan runs on each rank's local blocks (``local_map``)
+    with the batch over the batch axes and d whole on every rank (the
+    state gathered along d where the plan shards it); the reference's
+    plan shards it over 'model'. Returns (hs (B, S, d), (h, c, n, m)
+    after the last token)."""
+    if any(is_dtensor(t) for t in (u, h0, c0, n0, m0)):
+        row = (0, None)
+        out = on_local_blocks(
+            lambda u, h, c, n, m, r, bias: _slstm_steps(
+                r, bias, u, h, c, n, m, n_heads),
+            (u, h0, c0, n0, m0, p["r"], p["b"]),
+            (row,) * 5 + ((None, None),) * 2, (row,) * 5, u.shape[0],
+            None)
+    else:
+        out = _slstm_steps(p["r"], p["b"], u, h0, c0, n0, m0, n_heads)
+    return out[0], tuple(out[1:])
+
+
+def _slstm_steps(r, bias, u, h0, c0, n0, m0, n_heads):
+    """``_slstm_scan`` on plain tensors: (hs, h, c, n, m)."""
     b, s, d4 = u.shape
     d = d4 // 4
     dh = d // n_heads
-    r, bias = p["r"].float(), p["b"].float()
-    hprev, c, n, m = h0, c0, n0, m0
-    hs = []
-    for t in range(s):
+    r, bias = r.float(), bias.float()
+
+    def step(t, state):
+        hprev, c, n, m = state
         rec = torch.einsum("bhd,hde->bhe", hprev.reshape(b, n_heads, dh),
                            r).reshape(b, 4 * d)
         pre = u[:, t] + rec + bias
@@ -239,9 +285,11 @@ def _slstm_scan(p, u, h0, c0, n0, m0, n_heads):
         c = f_s * c + i_s * torch.tanh(z_raw)
         n = f_s * n + i_s
         hprev = torch.sigmoid(o_raw) * c / torch.clamp_min(n, 1e-6)
-        m = m_new
-        hs.append(hprev)
-    return torch.stack(hs, dim=1), (hprev, c, n, m)
+        return (hprev, c, n, m_new), hprev
+
+    state, hs = scan(step, (h0, c0, n0, m0), s,
+                     uniform=not torch.is_grad_enabled())
+    return (torch.stack(hs, dim=1), *state)
 
 
 def slstm_forward(p, x, *, n_heads):

@@ -152,6 +152,23 @@ def unshard(x, dim: int):
     return x.redistribute(x.device_mesh, want)
 
 
+def contiguous_local(x):
+    """``x`` with its local block contiguous and its global strides a
+    contiguous tensor's (the identity on a plain tensor). DTensor gives
+    an op's output the global strides of its own rules, which need not
+    be the layout of the local block the op produced (an einsum's
+    expert-major output over a token-major block); a later reshape that
+    the global strides allow as a view then asks the local block for a
+    view it cannot give. No data moves between ranks."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor
+    stride = torch.empty(x.shape, device="meta").stride()
+    return DTensor.from_local(x.to_local().contiguous(), x.device_mesh,
+                              x.placements, run_check=False,
+                              shape=x.shape, stride=stride)
+
+
 def as_dtensor(t, mesh):
     """A plain tensor beside DTensors as a DTensor replicated on
     ``mesh`` (it is whole on every rank); a DTensor as it is."""
@@ -160,6 +177,71 @@ def as_dtensor(t, mesh):
     from torch.distributed.tensor import DTensor, Replicate
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
+
+
+def _sharding(mesh, batch: int, heads) -> tuple:
+    """(mesh dims that shard the batch, mesh dim that shards the heads or
+    None): the batch axes when their product divides ``batch``, 'model'
+    when its size divides every count in ``heads`` (None: no head
+    split)."""
+    from .rules import make_rules, mesh_sizes
+    ctx = current_rules()
+    rules = ctx["rules"] if ctx and ctx.get("rules") is not None \
+        else make_rules(mesh)
+    names, sizes = list(mesh.mesh_dim_names), mesh_sizes(mesh)
+    prod = 1
+    for a in rules.batch:
+        prod *= sizes[a]
+    b_dims = [names.index(a) for a in rules.batch] if batch % prod == 0 \
+        else []
+    tp = rules.tp
+    h_dim = names.index(tp) if heads is not None and tp in names and all(
+        h % sizes[tp] == 0 for h in heads) else None
+    return b_dims, h_dim
+
+
+def _placements(mesh, b_dims, h_dim, batch_at, head_at, grad=False
+                ) -> list:
+    """Placements of one operand: ``Shard(batch_at)`` on the batch mesh
+    dims, ``Shard(head_at)`` on the head mesh dim, ``Replicate()``
+    elsewhere. An operand without the dim (its position None) is whole
+    on those ranks; with ``grad`` its gradient there is each rank's
+    partial sum (``Partial()``): the SSD's A summed over the local batch,
+    its B and C over the local heads, the sLSTM's r and bias over the
+    local batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    out = [Replicate()] * mesh.ndim
+    for i in b_dims:
+        out[i] = Shard(batch_at) if batch_at is not None else (
+            Partial() if grad else Replicate())
+    if h_dim is not None:
+        out[h_dim] = Shard(head_at) if head_at is not None else (
+            Partial() if grad else Replicate())
+    return out
+
+
+def on_local_blocks(fn, args, roles, out_roles, batch: int, heads):
+    """``fn`` on each rank's local blocks of ``args`` through
+    ``local_map`` (the kernel wrappers, and the model code that DTensor
+    cannot propagate: zamba2's conv, the mLSTM and sLSTM scans).
+    ``roles``: each operand's (batch dim, head dim), None for a dim it
+    lacks; ``out_roles`` the same for each output; ``heads`` the head
+    counts that 'model' must divide to split them, or None to keep every
+    rank's block whole along the head dims (and along every dim but the
+    batch)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(a for a in args if is_dtensor(a)).device_mesh
+    b_dims, h_dim = _sharding(mesh, batch, heads)
+    ins = tuple(_placements(mesh, b_dims, h_dim, *r) for r in roles)
+    grads = tuple(_placements(mesh, b_dims, h_dim, *r, grad=True)
+                  for r in roles)
+    outs = tuple(_placements(mesh, b_dims, h_dim, *r) for r in out_roles)
+    # one output's placements are a list; several outputs', a tuple
+    mapped = local_map(fn, out_placements=outs if len(outs) > 1 else outs[0],
+                       in_placements=ins, in_grad_placements=grads,
+                       device_mesh=mesh, redistribute_inputs=True)
+    return mapped(*(as_dtensor(a, mesh) if isinstance(a, torch.Tensor)
+                    else a for a in args))
 
 
 def merge_last(x, n: int):

@@ -6,9 +6,11 @@ and masked by an injected ``sample_mask``, and each micro-batch's loss
 and gradients are weighted by n_i/B in f32 before the cast to
 ``accum_dtype``, so the sum is the exact full-batch mean.
 
-The micro-batch loop is a Python loop (the reference's ``lax.scan``), and
-each micro-batch's gradients are dropped as soon as they are added to the
-accumulator, so only one micro-batch's gradients are alive at a time.
+The micro-batch loop is ``util.loops.scan`` (the reference's
+``lax.scan``; a Python loop over every micro-batch, which the dry-run can
+count from one trip), and each micro-batch's gradients are dropped as
+soon as they are added to the accumulator, so only one micro-batch's
+gradients are alive at a time.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.sharding.hooks import is_dtensor
 from repro_torch.tree import flatten, zeros_like_tree
+from repro_torch.util.loops import scan
 
 
 def _leading_dim(batch: Dict[str, torch.Tensor]) -> int:
@@ -97,13 +100,16 @@ def accumulate_gradients(
     loss_sum = torch.zeros((), dtype=torch.float32, device=device)
 
     if big % sub == 0:
-        for i in range(steps):
+        def micro(i, _):
             mb = {k: _rows(t, i * sub, (i + 1) * sub)
                   for k, t in batch.items()}
             loss, grads = loss_and_grad(params, mb)
             _add_into(acc, grads)
             del grads
-            loss_sum += loss.detach().float()
+            loss_sum.add_(loss.detach().float())
+            return None, None
+
+        scan(micro, None, steps, uniform=True)
         inv = 1.0 / steps
         with torch.no_grad():
             for t in flatten(acc).values():
@@ -119,7 +125,7 @@ def accumulate_gradients(
     weights = counts / big                       # f32, sums to 1
     mask = (torch.arange(padded, dtype=torch.float32, device=device)
             < big).float().reshape(steps, sub)
-    for i in range(steps):
+    def ragged(i, _):
         mb = {}
         for k, t in batch.items():
             part = _rows(t, i * sub, (i + 1) * sub)
@@ -133,5 +139,8 @@ def accumulate_gradients(
         w = weights[i].to(device)
         _add_into(acc, grads, w)
         del grads
-        loss_sum += w * loss.detach().float()
+        loss_sum.add_(w * loss.detach().float())
+        return None, None
+
+    scan(ragged, None, steps)
     return loss_sum, acc

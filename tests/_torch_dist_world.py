@@ -23,8 +23,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (arch, reshard_grads, grad_reduce_dtype) of the sharded training cases
 TRAIN_CASES = (("minicpm-2b", False, None), ("minicpm-2b", True, None),
                ("qwen2-vl-2b", False, None), ("qwen2-vl-2b", True, None),
-               ("minicpm-2b", True, "bfloat16"))
+               ("minicpm-2b", True, "bfloat16"),
+               ("zamba2-7b", False, None), ("xlstm-1.3b", False, None),
+               ("llama4-maverick-400b-a17b", False, None))
 BATCH, SEQ, ACCUM, STEPS = 4, 64, 2, 2
+# the archs whose gradients of one micro-batch are held to the single
+# process's, entry by entry: each runs code of its own on the local
+# blocks (zamba2-7b's conv, xlstm-1.3b's mLSTM and sLSTM scans, the MoE
+# experts of llama4-maverick)
+GRAD_ARCHS = ("zamba2-7b", "xlstm-1.3b", "llama4-maverick-400b-a17b")
 
 
 def reduced(arch: str):
@@ -178,6 +185,37 @@ def run_train(mesh, rules):
     return out
 
 
+def first_batch(cfg):
+    from repro_torch.data import SyntheticLM
+    return next(iter(SyntheticLM(cfg, BATCH, SEQ, device="cpu")))
+
+
+def run_grads(mesh, rules):
+    """Loss and gradients of one micro-batch (``make_loss_and_grad``) of
+    each of ``GRAD_ARCHS`` on DTensors, the gradients gathered whole:
+    {arch: (loss, [(key, index, gradient)])}."""
+    from repro_torch.launch import specs
+    from repro_torch.models import init_params
+    from repro_torch.sharding.hooks import activation_rules
+    from repro_torch.sharding.rules import distribute_tree
+    from repro_torch.train import TrainConfig, make_loss_and_grad
+    out = {}
+    for arch in GRAD_ARCHS:
+        cfg = reduced(arch)
+        params = init_params(cfg, 0, device="cpu")
+        params = distribute_tree(mesh, params,
+                                 specs.param_shardings(rules, params))
+        batch = first_batch(cfg)
+        batch = distribute_tree(mesh, batch,
+                                specs.batch_shardings(rules, batch))
+        with activation_rules(rules.activation_table(), rules=rules):
+            loss, grads = make_loss_and_grad(cfg, TrainConfig())(params,
+                                                                 batch)
+        out[arch] = (float(loss), [(k, i, g.full_tensor())
+                                   for k, i, g in grads])
+    return out
+
+
 def run_executor(rules):
     from repro_torch.launch.cluster import ScheduleExecutor
     from repro_torch.sharding.rules import full_tree
@@ -208,6 +246,7 @@ def worker(rank: int, world: int, out_dir: str) -> None:
                    "blocks": run_blocks(mesh, rank, world),
                    "ops": run_ops(mesh),
                    "train": run_train(mesh, rules),
+                   "grads": run_grads(mesh, rules),
                    "executor": run_executor(rules)}
         if rank == 0:
             torch.save(results, os.path.join(out_dir, "results.pt"))

@@ -4,7 +4,10 @@ A real world of 4 ``gloo`` ranks on a (2, 2) ('data', 'model') mesh runs
 in a subprocess (``_torch_dist_world.py``, with a time limit of its own,
 so a hung rank fails the test): reduced minicpm-2b and qwen2-vl-2b in
 f32, accum 2, 2 steps, with ``reshard_grads`` False and True and with
-``grad_reduce_dtype="bfloat16"``; ``ScheduleExecutor(rules=)`` on a
+``grad_reduce_dtype="bfloat16"``, and reduced zamba2-7b, xlstm-1.3b (one
+sLSTM block) and llama4-maverick, whose conv, mLSTM and sLSTM scans and
+MoE experts run on the local blocks; the same three archs' loss and
+gradients of one micro-batch; ``ScheduleExecutor(rules=)`` on a
 reduced pair; each kernel wrapper on DTensor inputs through
 ``local_map``; each rank's block of a tensor dim over two mesh axes. Its
 losses and gathered parameters are held here against the same runs on
@@ -22,7 +25,16 @@ than 5 % of it, and the mean difference must stay under 1e-4 of the mean
 update. With the gradients reduced in bf16, whose step of 2**-8 hides
 small gradient entries: losses to 2e-5, at most a quarter of the
 entries off by 5 % of the largest update, the mean under 1 % of the
-mean update.
+mean update. xlstm-1.3b's f32 gradients are 20-30 times as sensitive
+to rounding as the others' (its exponential gates): in one process, a
+run with f64 parameters moves an entry by up to 2.3e-5 of its leaf's
+largest, and the sharded run by 3.4e-5 (minicpm-2b: 1e-6 both). So its
+losses are held to 1e-5 and its mean difference to 1e-3 of the mean
+update. The gradients of one micro-batch, before AdamW (whose
+first steps hide a gradient's scale, so a placement that doubles a
+gradient would not show in the parameters), are held entry by entry to
+1e-4 of their leaf's largest entry: a wrong placement drops or repeats
+a rank's part, an error of the order of the entry itself.
 
 A world of one runs in this process: ``launch.train.main`` with
 ``--distributed --device cpu`` is bitwise the run without the flag, and
@@ -44,6 +56,7 @@ from repro_torch.launch.cluster import ScheduleExecutor  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
+from repro_torch.train import TrainConfig, make_loss_and_grad  # noqa: E402
 from repro_torch.tree import flatten  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -81,6 +94,11 @@ def _close_updates(got, want, start, share, mean_rel) -> bool:
                 and diff.mean() <= mean_rel * upd.mean())
 
 
+# (loss relative, share off by 5 %, mean relative) where not the f32
+# default (2e-6, 1e-3, 1e-4); see the module docstring
+TOLERANCE = {"bfloat16": (2e-5, 0.25, 1e-2), "xlstm-1.3b": (1e-5, 1e-3, 1e-3)}
+
+
 @pytest.mark.parametrize("case", W.TRAIN_CASES,
                          ids=lambda c: f"{c[0]}-reshard{c[1]}-{c[2]}")
 def test_sharded_training_matches_one_process(world, case):
@@ -91,8 +109,8 @@ def test_sharded_training_matches_one_process(world, case):
     params, _, losses = train_loop(
         cfg, params, SyntheticLM(cfg, W.BATCH, W.SEQ, device="cpu"),
         W.train_config(reshard, gdt), W.STEPS, log_every=W.STEPS)
-    loss_rel, share, mean_rel = (2e-5, 0.25, 1e-2) if gdt else (
-        2e-6, 1e-3, 1e-4)
+    loss_rel, share, mean_rel = TOLERANCE.get(
+        gdt, TOLERANCE.get(arch, (2e-6, 1e-3, 1e-4)))
     for got, want in zip(res["losses"], losses):
         assert abs(got - want) <= loss_rel * abs(want), (got, want)
     got = flatten(res["params"])
@@ -103,6 +121,21 @@ def test_sharded_training_matches_one_process(world, case):
     # every parameter stayed at its plan's placements
     for key, (placed, planned) in res["placements"].items():
         assert placed == planned, key
+
+
+@pytest.mark.parametrize("arch", W.GRAD_ARCHS)
+def test_sharded_gradients_match_one_process(world, arch):
+    """One micro-batch's loss to 2e-6 and every gradient, gathered whole,
+    entry by entry to 1e-4 of its leaf's largest entry."""
+    loss, grads = world["grads"][arch]
+    cfg = W.reduced(arch)
+    want_loss, want = make_loss_and_grad(cfg, TrainConfig())(
+        init_params(cfg, 0, device="cpu"), W.first_batch(cfg))
+    assert abs(loss - float(want_loss)) <= 2e-6 * abs(float(want_loss))
+    assert [(k, i) for k, i, _ in grads] == [(k, i) for k, i, _ in want]
+    for (key, index, got), (_, _, g) in zip(grads, want):
+        assert got.shape == g.shape, (key, index)
+        assert (got - g).abs().max() <= 1e-4 * g.abs().max(), (key, index)
 
 
 def test_reshard_changes_only_the_collectives(world):

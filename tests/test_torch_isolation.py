@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch``,
-``chip_smoke``, ``ssd_variants`` and ``flash_bitwise``
-loads neither JAX nor the reference package, and starts no process
-group."""
+``chip_smoke``, ``ssd_variants``, ``flash_bitwise`` and
+``dryrun_conv_bytes`` loads neither JAX nor the reference package, and
+starts no process group."""
 import os
 import subprocess
 import sys
@@ -19,6 +19,7 @@ for name in names:
 import chip_smoke
 import ssd_variants
 import flash_bitwise
+import dryrun_conv_bytes
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                 or m == "repro" or m.startswith("repro."))
@@ -61,7 +62,8 @@ def test_no_source_of_the_port_names_jax_or_the_reference():
     bad = []
     paths = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "ssd_variants.py"),
-             os.path.join(ROOT, "flash_bitwise.py")]
+             os.path.join(ROOT, "flash_bitwise.py"),
+             os.path.join(ROOT, "dryrun_conv_bytes.py")]
     for base, _, files in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
     for path in paths:
