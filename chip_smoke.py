@@ -32,7 +32,10 @@ in order; each prints its own line and any failure exits non-zero:
 
 1. build    - builds the three kernel libraries (flash attention, flash
               decode, SSD) from ``src/repro_torch/kernels/csrc``, one
-              nvcc per source, all started together.
+              ``nvcc -c`` per source, all started together (flash
+              decode's kernel instances in one source per dtype and
+              head_dim), then one link a library; each kernel compiled
+              once.
 2. parity   - each kernel against its plain PyTorch version on the card,
               at the main paths' shapes plus ragged-S, non-causal and
               window cases in f32 (the scalar kernels) and in bf16 (the
@@ -89,8 +92,8 @@ in order; each prints its own line and any failure exits non-zero:
               artifact written and read back (alpha, beta, t_iter_solo,
               xi, structural xi). Required: finite positive times,
               beta > 0, xi > 1, launch counts exact.
-6. replay   - ``launch.replay``'s scenario on minicpm-2b at 20 of 40
-              layers and qwen2-vl-2b at 14 of 28 (full width, bf16, seq
+6. replay   - ``launch.replay``'s scenario on minicpm-2b at 10 of 40
+              layers and qwen2-vl-2b at 7 of 28 (full width, bf16, seq
               2048, B = 4): its own calibration (every pair), SJF-BSBF
               with donor rescaling on it, the plan executed, each job
               re-run solo. Required: a 3-way group, A shrunk then
@@ -104,19 +107,19 @@ in order; each prints its own line and any failure exits non-zero:
               calibrated mode of ``table2_physical``: 30 jobs on 2 x 2
               GPUs), (b) on the paper's physical trace (4 x 4 GPUs) and
               its 240- and 480-job traces (16 x 4), (c) SJF and SJF-BSBF
-              on a Philly-shaped trace of 20000 jobs at 1024 GPUs.
+              on a Philly-shaped trace of 5000 jobs at 1024 GPUs.
               Prints avg JCT, queueing, makespan, preemptions and
               seconds per policy, the paper's two headline checks (not
               gated) and, for (c), events per second per decision path.
               Required: every job finishes, a second run gives the same
               log, heap == scan (rel 1e-6), and SJF-BSBF's grid ==
               batched == scalar logs.
-7. recovery - minicpm-2b at 4 of 40 layers (qwen2-vl-2b at 4 of 28),
+7. recovery - minicpm-2b at 2 of 40 layers (qwen2-vl-2b at 2 of 28),
               full width, bf16, seq 2048, B = 4, checkpoints in a
-              temporary directory removed at the end: (a) 6 steps
+              temporary directory removed at the end: (a) 5 steps
               uninterrupted against a run with a checkpoint every 2
               steps, a scripted fatal fault at call 4 and ``restart``:
-              params, moments, step and loss at step 6 bitwise equal,
+              params, moments, step and loss at step 5 bitwise equal,
               2 checkpoints written; (b) a transient fault retried once,
               bitwise no fault; (c) qwen2-vl-2b dropped from the pair by
               a fatal fault, minicpm-2b bitwise its solo run; (d) the
@@ -130,10 +133,11 @@ in order; each prints its own line and any failure exits non-zero:
               fault-free run, one retry; an exhausted budget raises.
 8. train    - ``launch.quickstart`` for 60 steps on the card (the loss
               must fall; s/step), then ``launch.train`` on minicpm-2b at
-              full width and depth, bf16, B = 4, seq 2048, accum 2, 3
-              steps, with a checkpoint (its CRC, losses and launches are
-              phase 19's yardstick): finite losses, exact flash
-              launches.
+              full width and 2 of its 40 layers (a 4.05 GB checkpoint;
+              full depth trains in phases 3-5), bf16, B = 4, seq 2048,
+              accum 2, 3 steps, with a checkpoint (its CRC, losses and
+              launches are phase 19's yardstick): finite losses, exact
+              flash launches.
 9. profile  - one profiled step of each model at s = 2: device time by
               kernel category and the device's busy share of the step.
 10. hybrid  - zamba2-7b at 36 of 81 layers through ``ScheduleExecutor``:
@@ -146,7 +150,7 @@ in order; each prints its own line and any failure exits non-zero:
               reduced configs in f32 (the reference's test tolerance),
               the hybrid at one and two units.
 12. serve   - minicpm-2b ``generate``: batch 4, 1024-token prompts,
-              64 greedy tokens, ``engine="scan"`` and ``"eager"`` (equal
+              16 greedy tokens, ``engine="scan"`` and ``"eager"`` (equal
               tokens); prefill and per-token times, launch counts.
 13. engine  - qwen2-vl-2b ``DecodeEngine``, 8 slots, 16 requests, run
               dense, paged and prefix-shared: paged == dense,
@@ -173,32 +177,32 @@ in order; each prints its own line and any failure exits non-zero:
               tables forced to split 128 and 512. Every other phase runs
               with no table installed, and it ends with none.
 15. hybrid_serve - zamba2-7b at 81 layers, bf16: ``generate`` at batch 4,
-              1024-token prompts, max_len 4096, 64 greedy tokens (prefill
+              1024-token prompts, max_len 4096, 16 greedy tokens (prefill
               ms, ms per decode step, tokens/s, peak memory; launches
               exact: ``ssd_fwd`` 81 and ``flash_fwd`` 9 per prefill,
               ``flash_decode`` 9 per step); a profile of 2 decode steps;
               the ``DecodeEngine`` with 8 slots, dense and paged, on 16
-              requests of 256-1024 prompt tokens and 32-64 new tokens:
+              requests of 256-1024 prompt tokens and 16-32 new tokens:
               paged == dense and engine == solo ``generate`` (required);
-              ``generate`` (32 tokens) with no table, under the
+              ``generate`` (16 tokens) with no table, under the
               ``autotune`` phase's table (its split at head_dim 112 is
               the shared block's), again, and with none: ms a decode
               step each, reported; then dense, paged and solo on a
               reduced zamba2 (18 layers) in f32, every token identity
               required.
 16. families - bf16, full width: (a) stablelm-12b at all 40 layers
-              through ``generate`` (batch 4, 1024-token prompts, 64
+              through ``generate`` (batch 4, 1024-token prompts, 16
               tokens, scan == eager; 40 flash forwards a prefill, 40
               decodes a step) and a decode profile; (b) stablelm-12b at
               8 of 40 layers through ``ScheduleExecutor`` (2 steps at
               s = 4, a reconfig to s = 2, 1 step; exact launches of the
               head_dim 160 kernels); (c) glm4-9b at all 40 layers with
               the reference's long-context window of 8192, 2 prompts of
-              9216 tokens, 64 tokens, scan == eager, 8192 cache rows a
+              9216 tokens, 16 tokens, scan == eager, 8192 cache rows a
               layer; (d) granite-moe-3b-a800m, einsum dispatch, at 16
               of 32 layers through the executor as (b) and a profiled
               step with the MoE einsums' device time, at all 32 through
-              ``generate`` (batch 4, 1024, 32 tokens) and a decode
+              ``generate`` (batch 4, 1024, 16 tokens) and a decode
               profile; (e) reduced f32:
               a windowed glm4-9b (window 16) dense engine == solo;
               granite-moe and llama4-maverick under the dense dispatch
@@ -209,12 +213,12 @@ in order; each prints its own line and any failure exits non-zero:
               chunk: the sLSTM's per-token loop took 20.4 s a step at
               512), s = 2, a warm-up and two timed steps, the last
               profiled (kernels, busy share); at all 48 ``generate`` at batch 4,
-              1024-token prompts, 64 tokens, scan == eager, and a
+              1024-token prompts, 16 tokens, scan == eager, and a
               decode profile; every kernel launched 0 times; (b)
               whisper-tiny (4 + 4 layers, 1500 frames) through the
               executor at decoder seq 448, B 8, s = 2 (24 flash
               forwards and 12 each of dQ and dK/dV a micro-batch) and
-              ``generate`` at batch 4, 16-token prompts, 64 tokens,
+              ``generate`` at batch 4, 16-token prompts, 16 tokens,
               max_len 448 (12 forwards a prefill, the encoder's 4
               among them; 8 decodes a step); (c) reduced f32: the
               xLSTM engine == solo; Whisper's paged decode == dense
@@ -316,8 +320,8 @@ SOURCES = {
     "flash_fwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_bwd_dq": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_bwd_dkdv": "src/repro_torch/kernels/csrc/flash_attention.cu",
-    "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
-    "flash_decode_paged": "src/repro_torch/kernels/csrc/flash_decode.cu",
+    "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cuh",
+    "flash_decode_paged": "src/repro_torch/kernels/csrc/flash_decode.cuh",
     "ssd_fwd": "src/repro_torch/kernels/csrc/ssd.cu",
     "ssd_bwd": "src/repro_torch/kernels/csrc/ssd.cu",
 }
@@ -337,8 +341,9 @@ DECODE_INSTANCES = {
 # the hybrid: zamba2-7b at full width, 36 of its 81 layers (4 of its 9
 # units of nine Mamba2 layers and the shared block)
 HYBRID_LAYERS = 36
-# serving shapes
-SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, MAX_LEN = 4, 1024, 64, 4096
+# serving shapes: a generate run's 16 greedy tokens are the 16 decode steps
+# its ms a step is read over, and enough for scan == eager
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, MAX_LEN = 4, 1024, 16, 4096
 # the reference's sliding window for full-attention archs at long context
 # (``configs/shapes.py``: LONG_CTX_WINDOW)
 LONG_WINDOW = 8192
@@ -433,7 +438,15 @@ def phase_build():
     libs = build_all()
     for name, lib in libs.items():
         ptxas = _ptxas(lib.build_log)
+        # each kernel instance is compiled by exactly one of the library's
+        # sources (the entries' source declares them extern)
+        names = [k["kernel"] for k in ptxas]
+        twice = sorted({n for n in names if names.count(n) > 1})
+        if not ptxas or twice:
+            raise AssertionError(f"build: {name} compiled {len(names)} "
+                                 f"kernels, these more than once: {twice}")
         log("build", library=name, nvcc_seconds=lib.build_seconds,
+            seconds_by_step=lib.build_steps,
             path=os.path.relpath(lib.path, ROOT), ptxas=ptxas,
             spills=[k["kernel"] for k in ptxas
                     if k.get("spill_stores") or k.get("spill_loads")])
@@ -1730,9 +1743,16 @@ def phase_calibrate(iters: int = CAL_ITERS):
 # ---------------------------------------------------------------------- #
 # phase 6: the simulated schedule, replayed
 # ---------------------------------------------------------------------- #
+# the replay's jobs at a quarter of each arch's layers, full width (the
+# CLI's full-width default is half: 20 / 14 layers, ~80 s of the smoke);
+# its calibration runs at full depth in phase calibrate, the executor in
+# phase solo
+REPLAY_DEPTH = 0.25
+
+
 def phase_replay(iters: int = CAL_ITERS, iters_a: int = 24):
-    """The replay scenario (``launch.replay``) on minicpm-2b at 20 of 40
-    layers and qwen2-vl-2b at 14 of 28, full width, bf16, seq 2048,
+    """The replay scenario (``launch.replay``) on minicpm-2b at 10 of 40
+    layers and qwen2-vl-2b at 7 of 28, full width, bf16, seq 2048,
     B = 4: its own calibration (every pair), the SJF-BSBF schedule on it,
     the plan executed, and each job re-run solo."""
     import torch
@@ -1742,12 +1762,12 @@ def phase_replay(iters: int = CAL_ITERS, iters_a: int = 24):
     from repro_torch.launch.cluster import accum_for_sub_batch
     t_phase = time.perf_counter()
     specs = build_specs((replay.ARCH_A, replay.ARCH_B), batch=BATCH,
-                        seq=SEQ, depth_fraction=0.5)
+                        seq=SEQ, depth_fraction=REPLAY_DEPTH)
     layers = {n: s.cfg.n_layers for n, s in specs.items()}
-    if layers != {"minicpm-2b": 20, "qwen2-vl-2b": 14}:
+    if layers != {"minicpm-2b": 10, "qwen2-vl-2b": 7}:
         raise AssertionError(f"replay: layers {layers}")
     log("replay", configs={n: s.cfg.name for n, s in specs.items()},
-        reduced="depth 40 -> 20 (minicpm-2b), 28 -> 14 (qwen2-vl-2b); "
+        reduced="depth 40 -> 10 (minicpm-2b), 28 -> 7 (qwen2-vl-2b); "
                 "widths as published", seq=SEQ, batch=BATCH)
     torch.cuda.reset_peak_memory_stats()
     _reset_all()
@@ -1822,8 +1842,9 @@ def phase_replay(iters: int = CAL_ITERS, iters_a: int = 24):
 # ---------------------------------------------------------------------- #
 DECISIONS = ("scalar", "grid", "batched")
 # the top point of the reference's ``benchmarks/sim_scale.py`` ladder
-# (LADDER_JOBS[1024]): 1024 GPUs as 128 servers of 8
-PHILLY_GPUS, PHILLY_JOBS, PHILLY_PER_SERVER = 1024, 20000, 8
+# (LADDER_JOBS[1024]): 1024 GPUs as 128 servers of 8, at 5000 of its 20000
+# jobs (the smoke's time; the three decision paths' logs still compared)
+PHILLY_GPUS, PHILLY_JOBS, PHILLY_PER_SERVER = 1024, 5000, 8
 
 
 def _policy_row(res, seconds) -> dict:
@@ -1969,11 +1990,15 @@ def phase_policies():
 # ---------------------------------------------------------------------- #
 # phase 7: checkpoints, fault recovery and segment retry
 # ---------------------------------------------------------------------- #
-# minicpm-2b at 4 of its 40 layers (qwen2-vl-2b at 4 of 28), full width:
-# one checkpoint of the bf16 params and f32 moments is ~5.3 GB, where
-# the full depth's would be ~27 GB
-RECOVERY_LAYERS = 4
-RECOVERY_STEPS = 6
+# minicpm-2b at 2 of its 40 layers (qwen2-vl-2b at 2 of 28), full width:
+# one checkpoint of the bf16 params and f32 moments is 4.05 GB (2.83 GB
+# of it the tied embedding), where 4 layers' was 5.27 GB and the full
+# depth's is 27.25 GB. The phase is its checkpoints' I/O: three writes, a
+# restart's read and a CRC read.
+RECOVERY_LAYERS = 2
+# steps a recovery run takes: the fault at call 4 comes after the step-2
+# and step-4 checkpoints, and the restarted run writes no third one
+RECOVERY_STEPS = 5
 
 
 def _recovery_specs():
@@ -2078,7 +2103,7 @@ def _recovery_training(specs, ckdir):
     while run.steps_done < n:
         ex.step_group(["a"])
     same = _bitwise(run, ref)
-    _require("recovery (a) restart", "step 6", same)
+    _require("recovery (a) restart", f"step {n}", same)
     ex.close()
     if ex.calls != n:
         raise AssertionError(f"recovery: {ex.calls} calls in (a)")
@@ -2215,9 +2240,9 @@ def _engine_retry() -> dict:
 
 
 def phase_recovery():
-    """minicpm-2b at 4 of 40 layers (and qwen2-vl-2b at 4 of 28), full
+    """minicpm-2b at 2 of 40 layers (and qwen2-vl-2b at 2 of 28), full
     width, bf16, seq 2048, B = 4 through the executor's fault paths:
-    (a) fail at call 4, restart from the step-4 checkpoint, step 6
+    (a) fail at call 4, restart from the step-4 checkpoint, step 5
     bitwise the uninterrupted run's; (b) a transient retried once, bitwise
     no fault; (c) a pair whose qwen2-vl-2b is dropped, the survivor
     bitwise its solo run; (d) the same through ``execute``. Then the
@@ -2269,23 +2294,48 @@ QUICKSTART_STEPS = 60
 TRAIN_ARGS = ["--arch", "minicpm-2b", "--dtype", "bfloat16", "--batch",
               str(BATCH), "--seq", str(SEQ), "--accum-steps", "2",
               "--steps", "3", "--log-every", "1"]
-# minicpm-2b's checkpoint: bf16 parameters and two f32 moments, 10 bytes
-# a parameter (2.7e9), with room to spare
-TRAIN_CKPT_BYTES = 32 * 10 ** 9
+# launch.train's runs (phases train and sharded) at 2 of minicpm-2b's 40
+# layers, full width, as phase recovery's: the checkpoint, bf16
+# parameters and two f32 moments at 10 bytes a parameter, is 4.05 GB there
+# against 27.25 GB at full depth (written and CRC'd twice, ~40 s each).
+# Full depth trains in phases solo, pair and calibrate.
+TRAIN_LAYERS = 2
+# the room launch.train's checkpoint needs, with some to spare
+TRAIN_CKPT_BYTES = 8 * 10 ** 9
+
+
+@contextlib.contextmanager
+def _train_depth(n_layers: int = TRAIN_LAYERS):
+    """``launch.train`` inside the block trains its arch at ``n_layers``
+    layers, full width (named ``arch@n``): its config lookup is replaced
+    for the block. Its flags are the reference's, which has no depth
+    flag."""
+    import dataclasses
+    from repro_torch.launch import train
+    lookup = train.get_config
+
+    def cut(name):
+        cfg = lookup(name)
+        return dataclasses.replace(cfg, name=f"{cfg.name}@{n_layers}",
+                                   n_layers=n_layers)
+    train.get_config = cut
+    try:
+        yield cut
+    finally:
+        train.get_config = lookup
 
 
 def phase_train():
     """``launch.quickstart`` for 60 steps (the shrunk f32 minicpm-2b,
     structured batches, accum 2): the loss must fall. Then
-    ``launch.train`` on minicpm-2b at full width and depth, bf16, B = 4,
-    seq 2048, accum 2, 3 steps, with a checkpoint: a finite loss and
-    exact flash launch counts. Returns the launches and that run's
-    per-step losses, checkpoint CRC, seconds a step and peak memory,
-    which phase ``sharded`` holds its run against."""
+    ``launch.train`` on minicpm-2b at full width and ``TRAIN_LAYERS`` of
+    its layers, bf16, B = 4, seq 2048, accum 2, 3 steps, with a
+    checkpoint: a finite loss and exact flash launch counts. Returns the
+    launches and that run's per-step losses, checkpoint CRC, seconds a
+    step and peak memory, which phase ``sharded`` holds its run against."""
     import shutil
     import torch
     from repro_torch.checkpoint import checkpoint_crc
-    from repro_torch.configs import get_config
     from repro_torch.launch import quickstart, train
     t_phase = time.perf_counter()
     launches = {}
@@ -2312,7 +2362,8 @@ def phase_train():
     try:
         path = os.path.join(ckdir, "train.npz")
         t0 = time.perf_counter()
-        res = train.run(TRAIN_ARGS + ["--checkpoint", path])
+        with _train_depth() as config:
+            res = train.run(TRAIN_ARGS + ["--checkpoint", path])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         base = {"losses": res.losses, "crc": checkpoint_crc(path),
@@ -2326,15 +2377,15 @@ def phase_train():
     for loss in base["losses"]:
         _check_loss("train", loss)
     args = train.build_argparser().parse_args(TRAIN_ARGS)
-    main_cfg = get_config(args.arch)
-    if args.reduced:
-        main_cfg = main_cfg.reduced()
+    main_cfg = config(args.arch)
     launches["driver"] = _expect_launches(
         "train driver",
         _expect(main_cfg.n_layers, args.steps * args.accum_steps))
     base["launches"] = launches["driver"]
     log("train", run="launch.train", args=" ".join(TRAIN_ARGS),
-        losses=base["losses"], crc=base["crc"],
+        config=main_cfg.name, d_model=main_cfg.d_model,
+        reduced=f"depth 40 -> {TRAIN_LAYERS}, for the checkpoint's size; "
+                f"width as published", losses=base["losses"], crc=base["crc"],
         checkpoint_bytes=base["checkpoint_bytes"],
         s_per_step=base["s_per_step"], wall_s_with_init_and_checkpoint=wall,
         launches=launches["driver"],
@@ -2360,6 +2411,49 @@ def _category(kernel: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
+def _trace_totals(prof, device_type) -> dict:
+    """{event key: [us, count]} over a finished profile's events on
+    ``device_type``, in the order of their first start: the sums
+    ``key_averages()`` gives for those keys (an event's time is 0 when it
+    is async; the same names, filter and order as the profiler's), read
+    from the raw trace. ``key_averages()`` first builds the profiler's
+    event tree, ~16 s for a training step's trace."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    rows = []
+    for e in res.events():
+        name = e.name()
+        if (e.device_type() != device_type or _filter_name(name)
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        start, end = (e.start_ns() - t0) / 1000, (e.end_ns() - t0) / 1000
+        timed = not (e.is_async() or e.start_thread_id() != e.end_thread_id())
+        rows.append((start, -end, _rewrite_name(name, with_wildcard=True),
+                     end - start if timed else 0))
+    rows.sort(key=lambda r: r[:2])
+    totals = {}
+    for _, _, key, us in rows:
+        tot = totals.setdefault(key, [0, 0])
+        tot[0] += us
+        tot[1] += 1
+    return totals
+
+
+def _op_device_us(events, ops) -> dict:
+    """{host op in ``ops``: device us of the kernels it launched} over the
+    profiler's events (its event tree: an op's kernels are its
+    children's), as ``key_averages()`` sums them."""
+    from torch.autograd import DeviceType
+    by_op = {op: 0.0 for op in ops}
+    for e in events:
+        if e.key in by_op and e.device_type != DeviceType.CUDA:
+            by_op[e.key] += (e.device_time_total
+                             if hasattr(e, "device_time_total")
+                             else e.cuda_time_total)      # torch < 2.4
+    return by_op
+
+
 def _profile_fields(prof, wall_ms: float, ops=()) -> dict:
     """A trace's device time by kernel category, kernels launched and the
     device's busy share of ``wall_ms``; and, for each host op named in
@@ -2367,19 +2461,14 @@ def _profile_fields(prof, wall_ms: float, ops=()) -> dict:
     of the kernels it launched."""
     from torch.autograd import DeviceType
     by_cat, top, n_kernels = {}, [], 0
-    by_op = {op: 0.0 for op in ops}
-    for e in prof.key_averages():
-        if e.key in by_op and e.device_type != DeviceType.CUDA:
-            by_op[e.key] += getattr(e, "device_time_total",
-                                    getattr(e, "cuda_time_total", 0)) / 1e3
-        # kernels only: a host op also reports its kernels' time
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t = e.self_device_time_total / 1e3          # us -> ms
-        cat = _category(e.key)
+    for key, (us, count) in _trace_totals(prof, DeviceType.CUDA).items():
+        t = us / 1e3                                # us -> ms
+        cat = _category(key)
         by_cat[cat] = by_cat.get(cat, 0.0) + t
-        top.append((t, e.key[:90], e.count))
-        n_kernels += e.count
+        top.append((t, key[:90], count))
+        n_kernels += count
+    by_op = {op: us / 1e3 for op, us in
+             _op_device_us(prof.events() if ops else (), ops).items()}
     top.sort(reverse=True)
     device_ms = sum(by_cat.values())
     return dict(
@@ -2579,7 +2668,7 @@ def phase_accum():
 # phase 12: serving through generate
 # ---------------------------------------------------------------------- #
 def phase_serve():
-    """minicpm-2b at full width, bf16: batch 4, 1024-token prompts, 64
+    """minicpm-2b at full width, bf16: batch 4, 1024-token prompts, 16
     greedy tokens through ``generate``, device loop and eager loop."""
     import numpy as np
     import torch
@@ -2663,12 +2752,10 @@ def _profile_decode(cfg, params, prompt, steps: int = PROFILE_DECODE_STEPS,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_cat, n_kernels = {}, 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        n_kernels += e.count
-        cat = _category(e.key)
-        by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total / 1e3
+    for key, (us, count) in _trace_totals(prof, DeviceType.CUDA).items():
+        n_kernels += count
+        cat = _category(key)
+        by_cat[cat] = by_cat.get(cat, 0.0) + us / 1e3
     device_ms = sum(by_cat.values())
     log(phase, profile=True, model=cfg.name, n_layers=cfg.n_layers,
         decode_steps=steps, wall_ms=wall_ms,
@@ -2684,13 +2771,13 @@ def _profile_decode(cfg, params, prompt, steps: int = PROFILE_DECODE_STEPS,
 # ---------------------------------------------------------------------- #
 def _engine_requests(cfg):
     """16 prompts: a shared 1024-token system prefix plus 256-1024 tokens
-    of their own; 32-128 new tokens each. All from one seed."""
+    of their own; 16-48 new tokens each. All from one seed."""
     import numpy as np
     rng = np.random.default_rng(1)
     system = rng.integers(0, cfg.vocab, SYSTEM_PREFIX)
     return [(np.concatenate([system, rng.integers(
         0, cfg.vocab, int(rng.integers(256, 1025)))]),
-        int(rng.integers(32, 129))) for _ in range(ENGINE_REQUESTS)]
+        int(rng.integers(16, 49))) for _ in range(ENGINE_REQUESTS)]
 
 
 def _agreement(a, b) -> dict:
@@ -2927,17 +3014,17 @@ def phase_engine():
 # phase 15: serving the hybrid at full depth
 # ---------------------------------------------------------------------- #
 def _hybrid_requests(cfg):
-    """16 prompts of 256-1024 tokens, 32-64 new tokens each, from one
+    """16 prompts of 256-1024 tokens, 16-32 new tokens each, from one
     seed."""
     import numpy as np
     rng = np.random.default_rng(4)
     return [(rng.integers(0, cfg.vocab, int(rng.integers(256, 1025))),
-             int(rng.integers(32, 65))) for _ in range(ENGINE_REQUESTS)]
+             int(rng.integers(16, 33))) for _ in range(ENGINE_REQUESTS)]
 
 
 def phase_hybrid_serve(tuned_table=None):
     """zamba2-7b at all 81 layers and full width, bf16: ``generate`` at
-    batch 4 (1024-token prompts, 64 greedy tokens; prefill and decode
+    batch 4 (1024-token prompts, 16 greedy tokens; prefill and decode
     times, launch counts exact), a profile of 2 decode steps, the
     ``DecodeEngine`` dense and paged on 16 requests (paged == dense and
     engine == solo ``generate``, bitwise); then ``generate`` again with
@@ -3039,14 +3126,14 @@ def phase_hybrid_serve(tuned_table=None):
     return paths
 
 
-TUNED_STEP_NEW = 32
+TUNED_STEP_NEW = 16
 
 
 def _tuned_decode_step(cfg, params, prompt, prefill_ms, payload) -> dict:
-    """``generate`` (batch 4, 1024-token prompts, 32 tokens) with no
+    """``generate`` (batch 4, 1024-token prompts, 16 tokens) with no
     table, under ``payload``, under it again and with none again: each
     run's seconds and ms a decode step (its seconds less the prefill's,
-    over 32), each table's launches, and whether the tokens agree. What
+    over 16), each table's launches, and whether the tokens agree. What
     the autotuned split moves on the path a user calls; reported, not
     gated (a host-bound step; the ``autotune`` phase gates the kernels'
     own times)."""
@@ -3231,7 +3318,6 @@ STABLELM_TRAIN_LAYERS = 8
 # 60 s of the smoke's 1200 (the profiler's cost grows with the 70k
 # kernels a step); it serves at 32
 GRANITE_TRAIN_LAYERS = 16
-MOE_NEW = 32
 
 
 def phase_families():
@@ -3301,7 +3387,7 @@ def phase_families():
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab,
                                           (SERVE_BATCH, SERVE_PROMPT)))
     paths["granite-moe generate"] = _generate_run(
-        "families", cfg, params, prompt, MAX_LEN, MOE_NEW)
+        "families", cfg, params, prompt, MAX_LEN, SERVE_NEW)
     _profile_decode(cfg, params, prompt, phase="families")
     del params
     torch.cuda.empty_cache()
@@ -3405,11 +3491,11 @@ def phase_xlstm_whisper():
     B 4, seq 256, s = 2, one warm-up and two timed steps, the last of
     them profiled; at all 48 through ``generate`` at batch 4, 1024-token
     prompts
-    (four chunks), 64 tokens, and a decode profile; no kernel launched
+    (four chunks), 16 tokens, and a decode profile; no kernel launched
     anywhere (the reference has none for xLSTM). (b) whisper-tiny, 4 + 4
     layers: through the executor with frames (8, 1500, 384), decoder seq
     448, B 8, s = 2 (24 flash forwards and 12 each of dQ and dK/dV a
-    micro-batch); ``generate`` at batch 4, 16-token prompts, 64 tokens,
+    micro-batch); ``generate`` at batch 4, 16-token prompts, 16 tokens,
     max_len 448 (12 forwards a prefill, 8 decodes a step). (c) reduced
     f32: the xLSTM engine == solo with more requests than slots; Whisper
     paged == dense and scan == eager."""
@@ -3753,9 +3839,10 @@ def phase_fleet():
     finishes, before the executor releases its state), then a master
     with 2 agent processes sharing this card (a checkpoint at the end of
     each lease), then the same with agent a0 SIGKILLed once it has
-    stepped twice (a checkpoint after every second step too). Both masters
-    start their agents first, so the agents' start (importing torch
-    takes seconds) overlaps the single-host run. Every job finishes with
+    stepped twice (a checkpoint after every second step too). The first
+    master's agents start first, so their start (importing torch takes
+    seconds) overlaps the single-host run, and the second's as the first
+    run begins. Every job finishes with
     the single-host steps, loss and checkpoint CRC, exactly; in the
     killed run a0's death is detected under ``dead_after`` + 1 s and its
     lease re-dispatched; without the kill the agents' flash launches add
@@ -3798,18 +3885,25 @@ def phase_fleet():
                 checkpoint_every=FLEET_CKPT_EVERY[1], step_sleep=0.3,
                 heartbeat_interval=0.1, suspect_after=0.5, dead_after=1.0),
              ChaosKiller([KillSpec(agent="a0", after_steps=2)])))
+
+    def spawn(m) -> float:
+        for _ in range(2):
+            m.spawn_agent()
+        return time.perf_counter()
+
     try:
         with contextlib.ExitStack() as stack:
-            t0 = time.perf_counter()
             masters = []
             for i, (label, fcfg, chaos) in enumerate(runs):
                 m = stack.enter_context(FleetMaster(
                     os.path.join(root, f"fleet{i}"), config=fcfg,
                     chaos=chaos))
                 m.start(0)
-                for _ in range(2):
-                    m.spawn_agent()
                 masters.append(m)
+            # the first run's agents start beside the single host; each
+            # next run's while the run before it goes (importing torch
+            # takes seconds; four at once took 25 s)
+            spawned = [spawn(masters[0])]
             ref_dir = os.path.join(root, "single_host")
             os.makedirs(ref_dir)
             _reset_all()
@@ -3829,14 +3923,17 @@ def phase_fleet():
                 checkpoints=ex.checkpoints_written,
                 launches=paths["single host"])
             shutil.rmtree(ref_dir)
-            for m, (label, fcfg, chaos) in zip(masters, runs):
+            for i, (m, (label, fcfg, chaos)) in enumerate(zip(masters,
+                                                              runs)):
                 m.wait_for_agents(2)
                 t1 = time.perf_counter()
+                if i + 1 < len(masters):
+                    spawned.append(spawn(masters[i + 1]))
                 rep = m.run_plan(plan, specs)
                 seconds = time.perf_counter() - t1
                 m.shutdown()
                 _fleet_run(label, m, fcfg, chaos, rep, ref, crcs, seconds,
-                           agents_up=t1 - t0, paths=paths)
+                           agents_up=t1 - spawned[i], paths=paths)
                 shutil.rmtree(m.checkpoint_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3955,25 +4052,24 @@ def _finish_dryrun(procs, t_end: float) -> list:
 
 
 def phase_sharded(base, dry):
-    """(a) ``launch.train`` as phase ``train`` ran it (minicpm-2b, full
-    width and depth, bf16, B 4, seq 2048, accum 2, 3 steps, with a
-    checkpoint), now with ``--distributed``: an ``nccl`` world of one
-    that the driver starts and destroys, a (1, 1) ('data', 'model') mesh
-    over the card, every parameter a DTensor at its plan's placements,
-    the flash kernels launched through ``local_map`` on the local blocks.
-    Required: every parameter at its placements; the per-step losses and
-    the checkpoint's CRC those of phase ``train``'s run, bitwise; the
-    flash launches equal to that run's. Prints both runs' seconds a step
-    (DTensor's host cost on a 1 x 1 mesh; an earlier run read 2.026 s
-    with no dry-run beside it) and peak memory. (b) The dry-run on the
-    host, in ``dry``: (processes, their start) from ``_start_dryrun``,
-    started before phase ``families`` at the lowest priority, so that
-    they end before the sharded steps (started after them, they would
-    add their ~110 s to the smoke's 1200; beside ``families``,
-    ``xlstm_whisper`` and ``fleet`` they moved none of those phases'
-    readings past the runs' own spread, PERF.md §6):
-    ``DRYRUN_RECORDS`` (minicpm-2b at train_4k on 16 x 16 and 2
-    x 16 x 16, qwen2-vl-2b on 16 x 16, and on 16 x 16 llama4-maverick's
+    """(a) ``launch.train`` as phase ``train`` ran it (minicpm-2b at full
+    width and ``TRAIN_LAYERS`` of its layers, bf16, B 4, seq 2048, accum
+    2, 3 steps, with a checkpoint), now with ``--distributed``: an
+    ``nccl`` world of one that ``launch.train`` starts and destroys, a
+    (1, 1) ('data', 'model') mesh over the card, every parameter a DTensor
+    at its plan's placements, the flash kernels launched through
+    ``local_map`` on the local blocks. Required: every parameter at its
+    placements; the per-step losses and the checkpoint's CRC those of
+    phase ``train``'s run, bitwise; the flash launches equal to that
+    run's. Prints both runs' seconds a step (DTensor's host cost on a
+    1 x 1 mesh) and peak memory. (b) The dry-run on the host, in ``dry``:
+    (processes, their start) from ``_start_dryrun``, started before phase
+    ``families`` at the lowest priority, so that they end before the
+    sharded steps (started after them, they would add their ~110 s to the
+    smoke's 1200; beside ``families``, ``xlstm_whisper`` and ``fleet``
+    they moved none of those phases' readings past the runs' own spread,
+    PERF.md §6): ``DRYRUN_RECORDS`` (minicpm-2b at train_4k on 16 x 16 and
+    2 x 16 x 16, qwen2-vl-2b on 16 x 16, and on 16 x 16 llama4-maverick's
     and zamba2-7b's prefill_32k, xlstm-1.3b's train_4k and decode_32k,
     llama3-405b's train_4k). Required: each record ``ok``. Prints each
     record's host seconds, per-device FLOPs, collective bytes by kind,
@@ -3997,8 +4093,9 @@ def phase_sharded(base, dry):
     try:
         path = os.path.join(ckdir, "sharded.npz")
         t0 = time.perf_counter()
-        res = train.run(TRAIN_ARGS + ["--distributed", "--checkpoint",
-                                      path])
+        with _train_depth():
+            res = train.run(TRAIN_ARGS + ["--distributed", "--checkpoint",
+                                          path])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         crc = checkpoint_crc(path)
@@ -4027,7 +4124,6 @@ def phase_sharded(base, dry):
            "crc": crc, "crc_unsharded": base["crc"],
            "crc_equal": crc == base["crc"],
            "s_per_step": s_step,
-           "s_per_step_first_sharded_run": 2.026,
            "s_per_step_unsharded": base["s_per_step"],
            "host_cost_s_per_step": s_step - base["s_per_step"],
            "wall_s_with_init_and_checkpoint": wall,

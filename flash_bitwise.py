@@ -5,16 +5,20 @@ build of them, bit for bit, on one NVIDIA H100.
     python3 flash_bitwise.py OTHER/src/repro_torch/kernels/csrc/flash_attention.cu \
         [OTHER/src/repro_torch/kernels/csrc/flash_decode.cu]
 
-Builds each ``OTHER`` source named (flash_attention.cu, flash_decode.cu
-or both) beside this tree's (one ``nvcc`` each, started together) and
-runs both on the same inputs. Attention: the forward, dQ and dK/dV of
-every square case of ``CASES`` (f32 and bf16, head_dim 64, 112, 128 and
-160, causal, non-causal and windowed, ragged S, and minicpm-2b's and
-stablelm-12b's layer shapes); every output, O, lse, dQ, dK and dV, must
-be bitwise equal. ``OTHER``'s backward entries may take one sequence
-length (the form before Sk != Sq) or two; where ``OTHER`` runs the bf16
-dK/dV at D = 160 as two passes (dV, then dK), this tree's one pass must
-give the same bits.
+Builds each ``OTHER`` library named by its entry source
+(flash_attention.cu, flash_decode.cu or both) from that source and the
+ones beside it that share its name (a library split over several
+sources, as ``flash_decode.cuh`` and ``flash_decode_<t>_<d>.cu`` are, is
+built whole; an older tree's single file alone), and this tree's from
+its own sources (``build.LIBRARIES``), one ``nvcc`` per source, all
+started together; then runs both on the same inputs. Attention: the
+forward, dQ and dK/dV of every square case of ``CASES`` (f32 and bf16,
+head_dim 64, 112, 128 and 160, causal, non-causal and windowed, ragged
+S, and minicpm-2b's and stablelm-12b's layer shapes); every output, O,
+lse, dQ, dK and dV, must be bitwise equal. ``OTHER``'s backward entries
+may take one sequence length (the form before Sk != Sq) or two; where
+``OTHER`` runs the bf16 dK/dV at D = 160 as two passes (dV, then dK),
+this tree's one pass must give the same bits.
 Decode: the linear and the paged kernel on every case of
 ``DECODE_CASES`` (f32 and bf16, head_dim 64 to 160, MHA and GQA, an
 empty slot, ragged lengths, the serving phases' shapes) at this tree's
@@ -22,8 +26,8 @@ default split of 256; ``OTHER``'s entries may or may not take a split
 (the form before the split was an argument had it fixed at 256); both
 outputs must be bitwise equal. Its use: a change that must leave the
 default path alone (the rectangular Sq != Sk backward, the split as an
-argument, the one-pass dK/dV at D = 160) is held against the build
-before it. Prints one JSON line per
+argument, the one-pass dK/dV at D = 160, a library split over several
+sources) is held against the build before it. Prints one JSON line per
 case, then the card's name and power limit; exits 1 if any output
 differs. Imports nothing of JAX or of the JAX package.
 """
@@ -58,16 +62,25 @@ def _takes(text: str, entry: str, param: str) -> bool:
     return bool(re.search(entry + r"\([^)]*\b" + param + r"\b", text))
 
 
+def other_sources(path: str) -> list:
+    """The sources of the library whose entry source is ``path``: it, and
+    the headers and sources beside it whose names start with its stem."""
+    import glob
+    stem = path[:-len(".cu")]
+    return [path] + sorted(p for p in glob.glob(stem + "*.cu*")
+                           if p != path and p.endswith((".cu", ".cuh")))
+
+
 def other_library(path: str):
-    """``path`` built and bound; its backward entries' argtypes follow
-    their C declaration (one ``int s`` or ``int sq, int sk``)."""
+    """``path``'s library built and bound; its backward entries' argtypes
+    follow their C declaration (one ``int s`` or ``int sq, int sk``)."""
     from repro_torch.kernels import build
     with open(path) as f:
         text = f.read()
     two = re.search(r"repro_flash_bwd_dq\([^)]*int sq, int sk", text)
     n = 7 if two else 6
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return build.Library("flash_attention_other", [path], {
+    return build.Library("flash_attention_other", other_sources(path), {
         "repro_flash_fwd": [p] * 5 + [i] * 8 + [fl, p],
         "repro_flash_bwd_dq": [p] * 7 + [i] * n + [fl, p],
         "repro_flash_bwd_dkdv": [p] * 8 + [i] * n + [fl, p]}
@@ -75,14 +88,15 @@ def other_library(path: str):
 
 
 def other_decode_library(path: str):
-    """``path`` (a flash_decode.cu) built and bound; its entries take a
-    split or not, as their C declaration says."""
+    """``path``'s library (a flash_decode.cu and its split sources, if
+    any) built and bound; its entries take a split or not, as their C
+    declaration says."""
     from repro_torch.kernels import build
     with open(path) as f:
         text = f.read()
     split = _takes(text, "repro_flash_decode", "split")
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return build.Library("flash_decode_other", [path], {
+    return build.Library("flash_decode_other", other_sources(path), {
         "repro_flash_decode_workspace": [i] * (4 + split),
         "repro_flash_decode": [p] * 6 + [i] * (6 + split) + [fl, p],
         "repro_flash_decode_paged": [p] * 7 + [i] * (7 + split) + [fl, p]}

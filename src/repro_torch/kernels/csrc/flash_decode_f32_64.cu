@@ -1,0 +1,5 @@
+// flash_decode.cuh's kernels at T = float, D = 64 (flash_decode.cu calls them).
+
+#include "flash_decode.cuh"
+
+template struct repro_decode::Kernels<float, 64>;

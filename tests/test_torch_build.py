@@ -28,16 +28,23 @@ def _extern_c_blocks(text: str):
         yield text[m.end():i - 1]
 
 
-def _declarations(library: str) -> dict:
-    """{entry: [parameter declarations]} over the library's sources."""
-    out = {}
+def _all_declarations(library: str) -> list:
+    """[(entry, [parameter declarations])] over the library's sources, one
+    item per definition."""
+    out = []
     for src in build.LIBRARIES[library][0]:
         with open(os.path.join(build.CSRC, src)) as f:
             text = re.sub(r"//[^\n]*", "", f.read())
         for block in _extern_c_blocks(text):
             for m in re.finditer(r"\bint\s+(\w+)\s*\(([^)]*)\)\s*\{", block):
-                out[m.group(1)] = [p.strip() for p in m.group(2).split(",")]
+                out.append((m.group(1),
+                            [p.strip() for p in m.group(2).split(",")]))
     return out
+
+
+def _declarations(library: str) -> dict:
+    """{entry: [parameter declarations]} over the library's sources."""
+    return dict(_all_declarations(library))
 
 
 def _ctype(param: str):
@@ -65,6 +72,15 @@ def test_every_c_entry_is_bound(library):
     declared = _declarations(library)
     assert declared, library
     assert set(declared) == set(build.LIBRARIES[library][1])
+
+
+@pytest.mark.parametrize("library", sorted(build.LIBRARIES))
+def test_every_c_entry_is_defined_once_over_the_sources(library):
+    """A library split over several sources still defines each C entry
+    in exactly one of them (two would fail the link, or bind the wrong
+    one)."""
+    names = [entry for entry, _ in _all_declarations(library)]
+    assert sorted(names) == sorted(build.LIBRARIES[library][1]), names
 
 
 def test_parser_reads_pointers_ints_and_floats():
@@ -116,3 +132,137 @@ def test_decode_workspace_is_sized_by_the_split():
     params = _declarations("flash_decode")["repro_flash_decode_workspace"]
     assert [p.split()[-1] for p in params] == ["b", "h", "d", "capacity",
                                                "split"]
+
+
+@pytest.mark.parametrize("library", sorted(build.LIBRARIES))
+def test_sources_exist_and_each_cu_compiles_to_its_own_object(library):
+    """The compile plan: one ``nvcc -c`` per ``.cu`` (a header is compiled
+    where it is included), each with ``NVCC_FLAGS`` but ``-shared``, each
+    into its own object; then one link of exactly those objects with
+    ``NVCC_FLAGS``. Built without running nvcc."""
+    sources = [os.path.join(build.CSRC, s)
+               for s in build.LIBRARIES[library][0]]
+    assert all(os.path.isfile(s) for s in sources), sources
+    cus = [s for s in sources if s.endswith(".cu")]
+    compiles, link = build.compile_plan("nvcc", sources, "/objs",
+                                        "/out/lib.so")
+    flags = [f for f in build.NVCC_FLAGS if f != "-shared"]
+    assert len(flags) == len(build.NVCC_FLAGS) - 1
+    assert len(compiles) == len(cus)
+    objects = []
+    for cmd, src in zip(compiles, cus):
+        assert cmd[0] == "nvcc" and cmd[-1] == src
+        assert cmd[1:1 + len(flags)] == flags
+        assert "-shared" not in cmd
+        rest = cmd[1 + len(flags):-1]
+        assert rest[0] == "-c" and rest[1] == "-o" and len(rest) == 3
+        assert os.path.dirname(rest[2]) == "/objs"
+        assert rest[2].endswith(".o")
+        objects.append(rest[2])
+    assert len(set(objects)) == len(objects)
+    assert link == ["nvcc", *build.NVCC_FLAGS, "-o", "/out/lib.so",
+                    *objects]
+
+
+def _instances(path: str, extern: bool) -> list:
+    """The ``Kernels<...>`` instantiations a source defines (or, with
+    ``extern``, declares ``extern template``)."""
+    with open(os.path.join(build.CSRC, path)) as f:
+        text = f.read()
+    kind = r"extern template" if extern else r"template"
+    return re.findall(r"^" + kind + r" struct (\w+)::Kernels<([^>]*)>;",
+                      text, re.M)
+
+
+# the libraries split over several sources: a header, the C entries'
+# source, the instances' sources
+SPLIT = sorted(name for name, (sources, _) in build.LIBRARIES.items()
+               if len(sources) > 1)
+
+
+def test_the_decode_library_is_split():
+    assert SPLIT == ["flash_decode"]
+
+
+@pytest.mark.parametrize("library", SPLIT)
+def test_each_instance_is_compiled_in_exactly_one_source(library):
+    """A split library's header holds its kernels; its entry source
+    declares every ``Kernels<...>`` instance ``extern template`` and so
+    compiles no kernel; each other source defines its instances, and
+    each instance is defined in exactly one source. The entry's dispatch
+    names exactly the declared instances."""
+    sources = build.LIBRARIES[library][0]
+    assert sources[:2] == [f"{library}.cuh", f"{library}.cu"]
+    declared = _instances(f"{library}.cu", extern=True)
+    assert declared and len(set(declared)) == len(declared)
+    assert not _instances(f"{library}.cu", extern=False)
+    defined = []
+    for src in sources[2:]:
+        assert src.startswith(f"{library}_") and src.endswith(".cu")
+        here = _instances(src, extern=False)
+        assert here, src
+        assert not _instances(src, extern=True), src
+        defined += here
+    assert sorted(defined) == sorted(declared)
+    with open(os.path.join(build.CSRC, f"{library}.cu")) as f:
+        text = f.read()
+    dispatched = re.findall(r"return Kernels<([^>]*)>::", text)
+    assert sorted(dispatched) == sorted(args for _, args in declared)
+
+
+def test_flash_decode_sources_are_one_per_dtype_and_head_dim():
+    """The decode library's 128 split kernels and 8 merges, the longest
+    compile, are cut into one source per (dtype, head_dim)."""
+    for src in build.LIBRARIES["flash_decode"][0][2:]:
+        ((_, args),) = _instances(src, extern=False)
+        t, d = args.split(", ")
+        assert src == ("flash_decode_" + ("f32" if t == "float" else "bf16")
+                       + f"_{d}.cu")
+    assert len(build.LIBRARIES["flash_decode"][0]) == 2 + 8
+
+
+def test_library_digest_covers_every_source(tmp_path, monkeypatch):
+    """An edit to any source of a library, a header included, names
+    another library file, so it is rebuilt."""
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    made = []
+    monkeypatch.setattr(build, "_compile", lambda name, srcs, out: (
+        made.append(out), open(out, "w").close(),
+        {"seconds": 0.0, "log": "", "steps": {}})[-1])
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: None)
+    files = []
+    for name in ("a.cuh", "a.cu", "a_1.cu"):
+        path = tmp_path / name
+        path.write_text(f"// {name}\n")
+        files.append(str(path))
+    first = build.Library("a", files, {}).path
+    assert build.Library("a", files, {}).path == first and len(made) == 1
+    paths = {first}
+    for path in files:
+        with open(path, "a") as f:
+            f.write("// edited\n")
+        paths.add(build.Library("a", files, {}).path)
+    assert len(paths) == 4 and len(made) == 4
+
+
+@pytest.mark.parametrize("library", sorted(build.LIBRARIES))
+def test_flash_bitwise_builds_another_tree_from_all_its_sources(
+        library, tmp_path):
+    """``flash_bitwise.py`` builds another tree's library from the entry
+    source it is given and the sources beside it that share its name: for
+    this tree that is every source of the library; for a tree of one file
+    per library, that file alone."""
+    import shutil
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import flash_bitwise
+    sources = build.LIBRARIES[library][0]
+    entry = os.path.join(build.CSRC, f"{library}.cu")
+    got = flash_bitwise.other_sources(entry)
+    assert got[0] == entry
+    assert sorted(os.path.basename(p) for p in got) == sorted(sources)
+    single = tmp_path / f"{library}.cu"
+    shutil.copy(entry, single)
+    (tmp_path / "other.cu").write_text("")
+    assert flash_bitwise.other_sources(str(single)) == [str(single)]
