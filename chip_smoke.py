@@ -2416,16 +2416,23 @@ def _trace_totals(prof, device_type) -> dict:
     ``device_type``, in the order of their first start: the sums
     ``key_averages()`` gives for those keys (an event's time is 0 when it
     is async; the same names, filter and order as the profiler's), read
-    from the raw trace. ``key_averages()`` first builds the profiler's
-    event tree, ~16 s for a training step's trace."""
+    from the raw trace. On a device, less its user annotations: the
+    port's ``record_function`` spans, which the trace copies onto the
+    device's timeline though they are no work of it.
+    ``key_averages()`` first builds the profiler's event tree, ~16 s for
+    a training step's trace."""
+    from torch.autograd import DeviceType
     from torch.autograd.profiler_util import _filter_name, _rewrite_name
     res = prof.profiler.kineto_results
     t0 = res.trace_start_ns()
+    copies = device_type != DeviceType.CPU
     rows = []
     for e in res.events():
         name = e.name()
         if (e.device_type() != device_type or _filter_name(name)
-                or getattr(e, "is_hidden_event", lambda: False)()):
+                or getattr(e, "is_hidden_event", lambda: False)()
+                or copies and getattr(e, "is_user_annotation",
+                                      lambda: False)()):
             continue
         start, end = (e.start_ns() - t0) / 1000, (e.end_ns() - t0) / 1000
         timed = not (e.is_async() or e.start_thread_id() != e.end_thread_id())
@@ -2454,11 +2461,122 @@ def _op_device_us(events, ops) -> dict:
     return by_op
 
 
+# the port's spans (``repro_torch/util/spans.py``) that a training step's
+# device time is put down to
+SPAN = "repro_torch."
+STEP_SPANS = ("repro_torch.executor.", "repro_torch.step.")
+PHASE_SPANS = ("forward", "backward", "accumulate", "optimizer")
+CALL_SPANS = ("attention", "attention_bwd", "ssd", "ssd_bwd")
+
+
+def _enclosing(spans, queries) -> dict:
+    """{instant in ``queries``: names of the spans (start, end, name),
+    which nest, that contain it, outermost first}."""
+    spans = sorted(spans, key=lambda s: (s[0], -s[1]))
+    out, stack, i = {}, [], 0
+    for t in sorted(set(queries)):
+        while i < len(spans) and spans[i][0] <= t:
+            while stack and stack[-1][1] < spans[i][0]:
+                stack.pop()
+            stack.append(spans[i])
+            i += 1
+        while stack and stack[-1][1] < t:
+            stack.pop()
+        out[t] = tuple(n for _, e, n in stack if e >= t)
+    return out
+
+
+def _span_chains(events) -> list:
+    """[(device ns, chain)] for each device operation of a finished
+    profile's raw events (``kineto_results.events()``): ``chain`` the
+    names of the port's spans open at its launch, or None where the
+    launch cannot be followed.
+
+    torch's own link: a device event's ``linked_correlation_id()`` is the
+    ``correlation_id()`` of the host operator that launched it, and the
+    runtime call that launched it carries both ids and the moment of the
+    launch (else the operator's start stands for it). The step's spans
+    are open on the thread that steps the jobs while the CUDA backward
+    launches from autograd's device thread, so a launch takes the step's
+    spans open on any thread at its moment; the unit, call and collector
+    spans only from the launching thread."""
+    from collections import defaultdict
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
+    device, host = [], []
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            if not (_filter_name(e.name()) or getattr(
+                    e, "is_user_annotation", lambda: False)()):
+                device.append((e.end_ns() - e.start_ns(), e.correlation_id(),
+                               e.linked_correlation_id()))
+        elif e.device_type() == DeviceType.CPU:
+            host.append(e)
+    ops = {op for *_, op in device if op}
+    launches = {cid for _, cid, op in device if op}
+    op_at, launch_at = {}, {}
+    spans = defaultdict(list)             # thread -> [(start, end, name)]
+    for e in host:
+        cid = e.correlation_id()
+        if e.linked_correlation_id():     # a runtime call
+            if cid in launches:
+                launch_at[(cid, e.linked_correlation_id())] = e.start_ns()
+            continue
+        if e.name().startswith(SPAN):
+            spans[e.start_thread_id()].append((e.start_ns(), e.end_ns(),
+                                               e.name()))
+        if cid in ops:
+            op_at[cid] = (e.start_ns(), e.start_thread_id())
+    at = [(launch_at.get((cid, op), op_at[op][0]), op_at[op][1])
+          if op in op_at else None for _, cid, op in device]
+    step = [s for rows in spans.values() for s in rows
+            if s[2].startswith(STEP_SPANS)]
+    any_thread = _enclosing(step, [a[0] for a in at if a])
+    own = {tid: _enclosing([r for r in rows
+                            if not r[2].startswith(STEP_SPANS)],
+                           [a[0] for a in at if a and a[1] == tid])
+           for tid, rows in spans.items()}
+    return [(ns, None if a is None else
+             any_thread[a[0]] + own.get(a[1], {}).get(a[0], ()))
+            for (ns, _, _), a in zip(device, at)]
+
+
+def _span_fields(prof) -> dict:
+    """A profiled group step's device time (ms) put down to the port's
+    spans: by step phase (``none`` where a launch has no phase or cannot
+    be followed), the recompute (``model.unit`` spans inside the
+    backward), by kernel call (attention, SSD and their backwards,
+    whatever kernels do the work), and the ``micro_batch`` spans a
+    ``step_group`` span holds; {} where the trace holds no
+    ``step_group`` span (a profile without the host, or not of a step)."""
+    from torch.autograd import DeviceType
+    events = prof.profiler.kineto_results.events()
+    host = [e.name() for e in events if e.device_type() == DeviceType.CPU
+            and e.name().startswith(STEP_SPANS)]
+    if "repro_torch.executor.step_group" not in host:
+        return {}
+    phases = dict.fromkeys(PHASE_SPANS + ("none",), 0.0)
+    calls = dict.fromkeys(CALL_SPANS, 0.0)
+    recompute = 0.0
+    for ns, chain in _span_chains(events):
+        names = {n.rsplit(".", 1)[-1] for n in chain or ()}
+        phase = next((p for p in PHASE_SPANS if p in names), "none")
+        phases[phase] += ns / 1e6
+        recompute += ns / 1e6 if {"backward", "unit"} <= names else 0.0
+        for c in CALL_SPANS:
+            calls[c] += ns / 1e6 if c in names else 0.0
+    return dict(by_phase_ms=phases, recompute_ms=recompute,
+                by_call_ms=calls,
+                micro_batch_spans=host.count("repro_torch.step.micro_batch")
+                / host.count("repro_torch.executor.step_group"))
+
+
 def _profile_fields(prof, wall_ms: float, ops=()) -> dict:
     """A trace's device time by kernel category, kernels launched and the
-    device's busy share of ``wall_ms``; and, for each host op named in
-    ``ops`` (exact profiler keys, e.g. ``aten::einsum``), the device time
-    of the kernels it launched."""
+    device's busy share of ``wall_ms``, and by the port's spans
+    (``_span_fields``); and, for each host op named in ``ops`` (exact
+    profiler keys, e.g. ``aten::einsum``), the device time of the kernels
+    it launched."""
     from torch.autograd import DeviceType
     by_cat, top, n_kernels = {}, [], 0
     for key, (us, count) in _trace_totals(prof, DeviceType.CUDA).items():
@@ -2478,7 +2596,7 @@ def _profile_fields(prof, wall_ms: float, ops=()) -> dict:
         by_category_ms=by_cat,
         top_kernels=[{"ms": t, "name": n, "calls": c}
                      for t, n, c in top[:8]],
-        **({"by_host_op_ms": by_op} if ops else {}))
+        **_span_fields(prof), **({"by_host_op_ms": by_op} if ops else {}))
 
 
 # micro-batches of a profiled training step (at 4 the profiler's trace

@@ -27,6 +27,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.util.spans import span
+
 from .ref import (attention_bwd_dkdv_ref, attention_bwd_dq_ref,
                   attention_ref)
 
@@ -172,13 +174,14 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        # delta_i = rowsum(dO_i * O_i): elementwise, outside the kernels
-        delta = (do.float() * o.float()).sum(dim=-1)
-        kw = dict(causal=ctx.causal, window=ctx.window)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-        dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+        with span("repro_torch.kernels.attention_bwd"):
+            q, k, v, o, lse = ctx.saved_tensors
+            do = do.contiguous()
+            # delta_i = rowsum(dO_i * O_i): elementwise, outside the kernels
+            delta = (do.float() * o.float()).sum(dim=-1)
+            kw = dict(causal=ctx.causal, window=ctx.window)
+            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
         return dq, dk, dv, None, None
 
 

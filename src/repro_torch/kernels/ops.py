@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.sharding.hooks import is_dtensor, on_local_blocks
+from repro_torch.util.spans import span
 
 from . import autotune
 from . import flash_attention as _flash
@@ -71,13 +72,18 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     and either Sk == Sq (training, one-shot prefill) or the attention is
     non-causal (Whisper's cross-attention, decoder rows over encoder
     rows); otherwise (the suffix prefill over a filled cache, causal
-    attention with Sk != Sq) forward only."""
+    attention with Sk != Sq) forward only. One span a call, on a DTensor
+    path too: the local blocks re-enter below it."""
+    with span("repro_torch.kernels.attention"):
+        return _attention_call(q, k, v, causal, window, q_offset)
+
+
+def _attention_call(q, k, v, causal, window, q_offset):
     if is_dtensor(q) or is_dtensor(k) or is_dtensor(v):
         role = (0, 2)
         return on_local_blocks(
-            lambda q, k, v: flash_attention(q, k, v, causal=causal,
-                                            window=window,
-                                            q_offset=q_offset),
+            lambda q, k, v: _attention_call(q, k, v, causal, window,
+                                            q_offset),
             (q, k, v), (role, role, role), (role,), q.shape[0],
             (q.shape[2],))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -136,10 +142,16 @@ def flash_decode_paged(q, k_pool, v_pool, pages, lengths, *, split=None):
 def ssd(x, dt, A, Bm, Cm):
     """Mamba2 SSD: x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N) ->
     y (B,S,H,P). Differentiable in all five operands; any S. No knob to
-    tune (``autotune.DEFAULTS["ssd"]`` is empty)."""
+    tune (``autotune.DEFAULTS["ssd"]`` is empty). One span a call, as
+    ``flash_attention``."""
+    with span("repro_torch.kernels.ssd"):
+        return _ssd_call(x, dt, A, Bm, Cm)
+
+
+def _ssd_call(x, dt, A, Bm, Cm):
     if any(is_dtensor(t) for t in (x, dt, A, Bm, Cm)):
         return on_local_blocks(
-            ssd, (x, dt, A, Bm, Cm),
+            _ssd_call, (x, dt, A, Bm, Cm),
             ((0, 2), (0, 2), (None, 0), (0, None), (0, None)), ((0, 2),),
             x.shape[0], (x.shape[2],))
     return _ssd.ssd(x, dt, A, Bm, Cm)

@@ -37,6 +37,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.util.spans import span
+
 from . import ref
 from .flash_attention import _DTYPES
 
@@ -258,9 +260,10 @@ class SSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        x, dt, A, Bm, Cm, states = ctx.saved_tensors
-        raw = ssd_bwd(x, dt, A, Bm, Cm, states, dy.contiguous())
-        return combine_grads(x, dt, A, Bm, Cm, raw)
+        with span("repro_torch.kernels.ssd_bwd"):
+            x, dt, A, Bm, Cm, states = ctx.saved_tensors
+            raw = ssd_bwd(x, dt, A, Bm, Cm, states, dy.contiguous())
+            return combine_grads(x, dt, A, Bm, Cm, raw)
 
 
 def _padded(x, dt, A, Bm, Cm):

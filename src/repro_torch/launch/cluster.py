@@ -54,6 +54,7 @@ from repro_torch.train import (OptState, TrainConfig, adamw_init,
                                make_train_step)
 from repro_torch.tree import tree_map
 from repro_torch.util.retry import RetryPolicy, retry_call
+from repro_torch.util.spans import install_gc_spans, span
 
 
 # ---------------------------------------------------------------------- #
@@ -293,6 +294,7 @@ class ScheduleExecutor:
         self._ckpt_thread: Optional[threading.Thread] = None
         self._ckpt_errors: List[BaseException] = []
         self._ckpt_slots = threading.BoundedSemaphore(self.CKPT_SNAPSHOTS)
+        install_gc_spans()
 
     # -- job lifecycle ------------------------------------------------- #
     def submit(self, name: str, spec: JobSpec, steps: int) -> JobRun:
@@ -547,12 +549,14 @@ class ScheduleExecutor:
             args: List[Any] = []
             for r in runs:
                 args += [r.params, r.opt, r.batch]
-            self._sync()
-            t0 = time.perf_counter()
-            with self._ctx():
-                out = prog(*args)
-            self._sync()
-            return out, time.perf_counter() - t0
+            with span("repro_torch.executor.step_group"):
+                self._sync()
+                t0 = time.perf_counter()
+                with self._ctx():
+                    out = prog(*args)
+                self._sync()
+                dt = time.perf_counter() - t0
+            return out, dt
 
         def note_retry(attempt_i, exc, delay):
             self.retries_total += 1

@@ -49,6 +49,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.sharding.hooks import constrain
 from repro_torch.tree import unit_slice
+from repro_torch.util.spans import span
 
 from . import attention as attn_mod
 from . import moe as moe_mod
@@ -283,14 +284,20 @@ def _scan_units(x, units, n_units: int, unit_fwd, remat: bool):
     the units' aux losses in unit order. ``units`` is the stacked dict,
     or a list of per-unit dicts (the gradient leaves of
     ``tree.grad_leaves``). ``remat`` recomputes each unit in the backward
-    instead of keeping its activations. Returns (x, aux)."""
+    instead of keeping its activations; each unit's span opens inside
+    what ``checkpoint`` runs, so it opens again in the recompute.
+    Returns (x, aux)."""
+    def unit(x, p):
+        with span("repro_torch.model.unit"):
+            return unit_fwd(x, p)
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for u in range(n_units):
         p = units[u] if isinstance(units, list) else unit_slice(units, u)
         if remat:
-            x, a = checkpoint(unit_fwd, x, p, use_reentrant=False)
+            x, a = checkpoint(unit, x, p, use_reentrant=False)
         else:
-            x, a = unit_fwd(x, p)
+            x, a = unit(x, p)
         aux = aux + a
     return x, aux
 

@@ -22,6 +22,7 @@ import torch
 from repro_torch.sharding.hooks import is_dtensor
 from repro_torch.tree import flatten, zeros_like_tree
 from repro_torch.util.loops import scan
+from repro_torch.util.spans import span
 
 
 def _leading_dim(batch: Dict[str, torch.Tensor]) -> int:
@@ -96,25 +97,30 @@ def accumulate_gradients(
     sub = math.ceil(big / max(accum_steps, 1))
     steps = math.ceil(big / sub)
     device = next(iter(batch.values())).device
-    acc = zeros_like_tree(params, accum_dtype)
-    loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+    with span("repro_torch.step.accumulate"):
+        acc = zeros_like_tree(params, accum_dtype)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
 
     if big % sub == 0:
         def micro(i, _):
-            mb = {k: _rows(t, i * sub, (i + 1) * sub)
-                  for k, t in batch.items()}
-            loss, grads = loss_and_grad(params, mb)
-            _add_into(acc, grads)
-            del grads
-            loss_sum.add_(loss.detach().float())
+            with span("repro_torch.step.micro_batch"):
+                mb = {k: _rows(t, i * sub, (i + 1) * sub)
+                      for k, t in batch.items()}
+                loss, grads = loss_and_grad(params, mb)
+                with span("repro_torch.step.accumulate"):
+                    _add_into(acc, grads)
+                    del grads
+                    loss_sum.add_(loss.detach().float())
             return None, None
 
         scan(micro, None, steps, uniform=True)
         inv = 1.0 / steps
-        with torch.no_grad():
-            for t in flatten(acc).values():
-                t.mul_(inv)
-        return loss_sum * inv, acc
+        with span("repro_torch.step.accumulate"):
+            with torch.no_grad():
+                for t in flatten(acc).values():
+                    t.mul_(inv)
+            loss = loss_sum * inv
+        return loss, acc
 
     # ragged final micro-batch: pad + mask, weight each micro-batch by its
     # valid-sample share so the sum is the exact full-batch mean
@@ -126,20 +132,22 @@ def accumulate_gradients(
     mask = (torch.arange(padded, dtype=torch.float32, device=device)
             < big).float().reshape(steps, sub)
     def ragged(i, _):
-        mb = {}
-        for k, t in batch.items():
-            part = _rows(t, i * sub, (i + 1) * sub)
-            if part.shape[0] < sub:
-                pad = torch.zeros((sub - part.shape[0],) + part.shape[1:],
-                                  dtype=t.dtype, device=t.device)
-                part = torch.cat([part, pad])
-            mb[k] = part
-        mb["sample_mask"] = mask[i]
-        loss, grads = loss_and_grad(params, mb)
-        w = weights[i].to(device)
-        _add_into(acc, grads, w)
-        del grads
-        loss_sum.add_(w * loss.detach().float())
+        with span("repro_torch.step.micro_batch"):
+            mb = {}
+            for k, t in batch.items():
+                part = _rows(t, i * sub, (i + 1) * sub)
+                if part.shape[0] < sub:
+                    pad = torch.zeros((sub - part.shape[0],) + part.shape[1:],
+                                      dtype=t.dtype, device=t.device)
+                    part = torch.cat([part, pad])
+                mb[k] = part
+            mb["sample_mask"] = mask[i]
+            loss, grads = loss_and_grad(params, mb)
+            with span("repro_torch.step.accumulate"):
+                w = weights[i].to(device)
+                _add_into(acc, grads, w)
+                del grads
+                loss_sum.add_(w * loss.detach().float())
         return None, None
 
     scan(ragged, None, steps)

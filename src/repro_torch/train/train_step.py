@@ -26,6 +26,7 @@ from repro_torch.models import forward
 from repro_torch.models.model import layered_units
 from repro_torch.sharding.hooks import is_dtensor, unshard
 from repro_torch.tree import flatten, grad_leaves, tree_map
+from repro_torch.util.spans import span
 
 from .grad_accum import accumulate_gradients
 from .optimizer import OptState, _chunks, adamw_update
@@ -85,14 +86,17 @@ def make_loss_and_grad(cfg: ArchConfig, tc: TrainConfig = TrainConfig()):
 
     def lg(params, micro_batch):
         split, slots = grad_leaves(params, layered)
-        loss, _ = loss_fn(cfg, split, micro_batch,
-                          aux_loss_weight=tc.aux_loss_weight,
-                          remat=tc.remat)
-        grads = torch.autograd.grad(loss, [leaf for _, _, leaf in slots])
-        if is_dtensor(loss):
-            loss = loss.full_tensor()
-            grads = [_reduce_grad(g, leaf.placements, tc)
-                     for (_, _, leaf), g in zip(slots, grads)]
+        with span("repro_torch.step.forward"):
+            loss, _ = loss_fn(cfg, split, micro_batch,
+                              aux_loss_weight=tc.aux_loss_weight,
+                              remat=tc.remat)
+        with span("repro_torch.step.backward"):
+            grads = torch.autograd.grad(loss,
+                                        [leaf for _, _, leaf in slots])
+            if is_dtensor(loss):
+                loss = loss.full_tensor()
+                grads = [_reduce_grad(g, leaf.placements, tc)
+                         for (_, _, leaf), g in zip(slots, grads)]
         return loss.detach(), [(key, index, g) for (key, index, _), g
                                in zip(slots, grads)]
 
@@ -159,13 +163,15 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig = TrainConfig()):
         loss, grads = accumulate_gradients(
             lg, params, batch, tc.accum_steps,
             accum_dtype=torch_dtype(tc.accum_dtype))
-        if tc.grad_reduce_dtype is not None:
-            gdt = torch_dtype(tc.grad_reduce_dtype)
-            grads = tree_map(lambda g: g.to(gdt), grads)
-        lr = tc.schedule if tc.schedule is not None else tc.lr
-        params, opt_state = adamw_update(
-            grads, opt_state, params, lr=lr, weight_decay=tc.weight_decay)
-        return params, opt_state, {"loss": loss,
-                                   "grad_norm": grad_norm(grads)}
+        with span("repro_torch.step.optimizer"):
+            if tc.grad_reduce_dtype is not None:
+                gdt = torch_dtype(tc.grad_reduce_dtype)
+                grads = tree_map(lambda g: g.to(gdt), grads)
+            lr = tc.schedule if tc.schedule is not None else tc.lr
+            params, opt_state = adamw_update(
+                grads, opt_state, params, lr=lr,
+                weight_decay=tc.weight_decay)
+            norm = grad_norm(grads)
+        return params, opt_state, {"loss": loss, "grad_norm": norm}
 
     return train_step

@@ -248,3 +248,133 @@ def test_trace_totals_are_key_averages_sums():
     assert got == want and list(got) == list(want)
     assert got["aten::mm"][1] == 3 and "twice" in got
     assert chip_smoke._trace_totals(prof, DeviceType.CUDA) == {}
+
+
+def test_trace_totals_leave_out_the_device_copies_of_host_spans():
+    """A ``record_function`` span that launched kernels appears on the
+    device's timeline too, as a user annotation over them: no device
+    work, so no key of the device's totals (the host's span stays)."""
+    from types import SimpleNamespace
+    from torch.autograd import DeviceType
+
+    def event(name, device, start, end, note=False):
+        return SimpleNamespace(
+            name=lambda: name, device_type=lambda: device,
+            start_ns=lambda: start, end_ns=lambda: end,
+            is_async=lambda: False, start_thread_id=lambda: 1,
+            end_thread_id=lambda: 1, is_hidden_event=lambda: False,
+            is_user_annotation=lambda: note)
+
+    events = [event("repro_torch.step.forward", DeviceType.CPU, 0, 9000,
+                    note=True),
+              event("repro_torch.step.forward", DeviceType.CUDA, 1000,
+                    8000, note=True),
+              event("nvjet_gemm", DeviceType.CUDA, 1000, 3000),
+              event("elementwise_kernel", DeviceType.CUDA, 3000, 8000)]
+    results = SimpleNamespace(trace_start_ns=lambda: 0,
+                              events=lambda: events)
+    prof = SimpleNamespace(profiler=SimpleNamespace(kineto_results=results))
+    assert chip_smoke._trace_totals(prof, DeviceType.CUDA) == {
+        "nvjet_gemm": [2.0, 1], "elementwise_kernel": [5.0, 1]}
+    assert chip_smoke._trace_totals(prof, DeviceType.CPU) == {
+        "repro_torch.step.forward": [9.0, 1]}
+
+
+class _Ev:
+    """The ``_KinetoEvent`` methods the smoke's span attribution reads."""
+
+    def __init__(self, name, start, end, *, cuda=False, corr=0, linked=0,
+                 tid=1, note=False):
+        from torch.autograd import DeviceType
+        self.name = lambda: name
+        self.start_ns, self.end_ns = (lambda: start), (lambda: end)
+        self.correlation_id = lambda: corr
+        self.linked_correlation_id = lambda: linked
+        self.start_thread_id = lambda: tid
+        self.is_user_annotation = lambda: note
+        self.device_type = lambda: DeviceType.CUDA if cuda else DeviceType.CPU
+
+
+SG, MB = "repro_torch.executor.step_group", "repro_torch.step.micro_batch"
+FWD, BWD = "repro_torch.step.forward", "repro_torch.step.backward"
+ACC, OPT = "repro_torch.step.accumulate", "repro_torch.step.optimizer"
+UNIT, ATT = "repro_torch.model.unit", "repro_torch.kernels.attention"
+ATT_BWD = "repro_torch.kernels.attention_bwd"
+
+
+def _span(name, s, e, tid=1):
+    return _Ev(name, s, e, tid=tid, note=True)
+
+
+def _launch(op, s, e, kernel, ks, ke, *, corr, tid=1, at=None):
+    """A host operator (``corr``), its runtime call at ``at`` and the
+    device operation it launched, linked as torch links them."""
+    rows = [_Ev(op, s, e, corr=corr, tid=tid),
+            _Ev(kernel, ks, ke, cuda=True, corr=corr + 5000, linked=corr)]
+    if at is not None:
+        rows.append(_Ev("cudaLaunchKernel", at, at + 1, corr=corr + 5000,
+                        linked=corr, tid=99))
+    return rows
+
+
+def _step_events(unlinked_ns=0):
+    """One group step of one micro-batch: the phases on thread 1, the
+    recompute and the attention's backward on autograd's thread 2."""
+    ev = [_span(SG, 0, 2000), _span(MB, 10, 1900), _span(FWD, 20, 300),
+          _span(BWD, 300, 1800), _span(ACC, 1800, 1890),
+          _span(OPT, 1900, 1990), _span(UNIT, 25, 290), _span(ATT, 100, 150),
+          _span(UNIT, 400, 600, tid=2), _span(ATT_BWD, 650, 800, tid=2),
+          _span("repro_torch.gc", 1200, 1300),
+          # a span's copy on the device's timeline is no device work
+          _Ev(FWD, 20, 300, cuda=True, note=True)]
+    ev += _launch("aten::mm", 30, 40, "nvjet_mm", 1000, 1100, corr=1)
+    ev += _launch("FlashAttention", 110, 140, "flash_fwd_mma_kernel<64>",
+                  1100, 1200, corr=2)
+    ev += _launch("aten::mul", 410, 420, "elementwise_mul", 1400, 1500,
+                  corr=3, tid=2)
+    # the backward node opens before its span: the runtime call's instant
+    ev += _launch("FlashAttentionBackward", 640, 810,
+                  "flash_bwd_dq_mma_kernel<64>", 1500, 1600, corr=4, tid=2,
+                  at=700)
+    ev += _launch("aten::add_", 1810, 1820, "add", 1600, 1650, corr=5)
+    ev += _launch("aten::mul", 1910, 1920, "adam", 1650, 1850, corr=6)
+    if unlinked_ns:
+        ev.append(_Ev("orphan_kernel", 1850, 1850 + unlinked_ns, cuda=True,
+                      corr=7000))
+    return ev
+
+
+def test_span_chains_climb_the_launching_thread_and_take_the_step_phase():
+    got = chip_smoke._span_chains(_step_events())
+    assert got == [
+        (100, (SG, MB, FWD, UNIT)), (100, (SG, MB, FWD, UNIT, ATT)),
+        # thread 2 has no step span: it takes thread 1's open at the launch
+        (100, (SG, MB, BWD, UNIT)), (100, (SG, MB, BWD, ATT_BWD)),
+        (50, (SG, MB, ACC)), (200, (SG, OPT))]
+
+
+def test_span_chains_without_the_runtime_call_or_the_link():
+    ev = [e for e in _step_events(unlinked_ns=3)
+          if e.name() != "cudaLaunchKernel"]
+    got = chip_smoke._span_chains(ev)
+    # the operator's start stands for the launch, before the call's span
+    assert got[3] == (100, (SG, MB, BWD))
+    assert got[-1] == (3, None)
+
+
+def test_span_fields_put_a_step_down_to_its_phases():
+    from types import SimpleNamespace
+    events = _step_events(unlinked_ns=3)
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    got = chip_smoke._span_fields(prof)
+    assert got == {
+        "by_phase_ms": {"forward": 200e-6, "backward": 200e-6,
+                        "accumulate": 50e-6, "optimizer": 200e-6,
+                        "none": 3e-6},
+        "recompute_ms": 100e-6,
+        "by_call_ms": {"attention": 100e-6, "attention_bwd": 100e-6,
+                       "ssd": 0.0, "ssd_bwd": 0.0},
+        "micro_batch_spans": 1.0}
+    events = [e for e in events if not e.name().startswith("repro_torch.")]
+    assert chip_smoke._span_fields(prof) == {}
